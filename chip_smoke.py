@@ -7,18 +7,20 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases, one JSON line each: device (name, capability, power limit, kernel
-build), kernel flash_attention and kernel rmsnorm (kernel against its plain
-PyTorch version on the card, with times), prefill (qwen3_4b at full width,
-random weights from a seeded generator, through the flash kernel, checked
-against the reference attention path) and serve (the engine answers four
-requests; the prefill's last-position logits are checked against the
-engine path's ``decode_step``).  Then a ``kernels`` line and, last,
+builds), kernel flash_attention, kernel rmsnorm and kernel ssd_scan (kernel
+against its plain PyTorch version on the card, with times), then for each
+model at full width, with random weights from a seeded generator: prefill
+(through the kernels, checked against the reference path) and serve (the
+engine answers four requests; prefill logits are checked against the engine
+path's ``decode_step``).  The models are qwen3_4b (flash attention) and
+mamba2_130m (the SSD scan).  Then a ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 not 0; without a CUDA device the script exits 1 before any phase.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -33,6 +35,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 
@@ -58,6 +61,22 @@ RN_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 # 1.8% relative RMS and 0.11 at most; the bounds leave about 3x headroom.
 LOGIT_REL_RMS = 5e-2
 LOGIT_MAX_ABS = 0.5
+# SSD scan, (allclose rtol = atol, relative RMS error).  Kernel and plain
+# version compute in f32 from the same inputs (bf16 widened exactly) in
+# another summation order: on an H100 the largest error, 3.0e-4 at the main
+# shape, was under a third of the allclose limit there, and relative RMS
+# errors were at most 2.3e-6 (PERF.md).  A kernel that drops or mis-decays the state
+# carried between chunks moves the slow-decay cases by tens of percent
+# (their "carry_rel_rms").
+SSD_TOL = (1e-3, 1e-5)
+# mamba2_130m logits (RMS about 1), (relative RMS error, max abs error).  The
+# SSD layers are f32 inside, but a bf16 rounding of their output that moves
+# with f32 summation order grows through the next 23 layers.  A CPU emulation
+# (scripts/ssm_logit_bounds.py: full width and depth, batch (1, 512) and a
+# 256-token prefill against decode_step) differed by 2.1% and 3.2% relative
+# RMS and 0.38 at most (2.6e-6 relative in f32); the bounds leave about 3x
+# headroom, more on the max over the 32x larger chip batch.
+SSM_LOGIT_BOUNDS = (0.1, 1.5)
 
 FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal
     (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True),  # qwen3_4b prefill shape
@@ -73,6 +92,20 @@ RN_CASES = [  # rows, D, dtype; the first two are timed
     (2 * 32 * 1024, 128, torch.bfloat16),  # its q-norm rows
     (7, 512, torch.float32),  # a row count that is no power of two
     (7, 512, torch.bfloat16),
+]
+# B, S, H, P, N, chunk, dtype, dt: "mamba2" draws dt = softplus(N(0, 1) +
+# dt_bias) with dt_bias and A as Mamba-2 initializes them; "slow" draws dt
+# uniform in [1e-3, 1e-2] and A = -exp(N(0, 1)), so that a chunk of 128 keeps
+# about half its state (median exp(-0.7)) and the carry between chunks shows.
+SSD_CASES = [
+    (4, 4096, 32, 64, 128, 128, torch.bfloat16, "mamba2"),  # mamba2_130m prefill
+    (1, 5, 2, 16, 8, 128, torch.float32, "mamba2"),  # S < chunk: q = 5
+    (2, 3, 4, 32, 16, 128, torch.float32, "mamba2"),  # q = 3
+    (1, 100, 2, 64, 128, 128, torch.float32, "mamba2"),  # q = 100, past one half-chunk
+    (1, 96, 3, 16, 24, 32, torch.float32, "slow"),  # 3 chunks, N not a multiple of 16
+    (2, 256, 4, 32, 64, 64, torch.float32, "slow"),  # 4 chunks
+    (2, 2048, 8, 64, 128, 128, torch.float32, "slow"),  # 16 chunks: the carry case
+    (2, 2048, 8, 64, 128, 128, torch.bfloat16, "slow"),
 ]
 
 
@@ -132,8 +165,10 @@ def time_ms(fn, args: tuple, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    t_ops = flops / PEAK_FLOPS[dtype]
+def bound(nbytes: float, *work: tuple[float, torch.dtype]) -> tuple[float, str]:
+    """Least time, in ms, for moving ``nbytes`` and doing each ``(flops, type)``
+    of ``work`` at the card's peak for that type (the types' times add up)."""
+    t_ops = sum(flops / PEAK_FLOPS[dtype] for flops, dtype in work)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -161,17 +196,53 @@ def close(out, ref, tol) -> float:
     return err
 
 
-def logit_check(name: str, out, ref) -> dict:
+def logit_check(name: str, out, ref, bounds=(LOGIT_REL_RMS, LOGIT_MAX_ABS)) -> dict:
     out, ref = out.float(), ref.float()
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f"{name}: shape {tuple(out.shape)} or non-finite logits")
     diff = out - ref
     rel = (diff.norm() / ref.norm()).item()
     mx = diff.abs().max().item()
-    if rel > LOGIT_REL_RMS or mx > LOGIT_MAX_ABS:
+    if rel > bounds[0] or mx > bounds[1]:
         raise AssertionError(f"{name}: rel rms err {rel}, max abs err {mx}")
-    return {"rel_rms_err": rel, "max_abs_err": mx, "tol_rel_rms": LOGIT_REL_RMS,
-            "tol_max_abs": LOGIT_MAX_ABS}
+    return {"rel_rms_err": rel, "max_abs_err": mx, "tol_rel_rms": bounds[0],
+            "tol_max_abs": bounds[1]}
+
+
+def mamba2_dt_A(gen: torch.Generator, shape) -> tuple[torch.Tensor, torch.Tensor]:
+    """``dt_bias`` and ``A_log`` as Mamba-2 draws them (state-spaces/mamba,
+    mamba_ssm/modules/mamba2.py): dt log-uniform in [dt_min, dt_max] =
+    [1e-3, 1e-1], floored at 1e-4, ``dt_bias`` its inverse softplus; A
+    uniform in A_init_range = [1, 16]."""
+    dev = gen.device
+    u = torch.rand(shape, generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)).clamp_min(1e-4)
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    A = torch.rand(shape, generator=gen, device=dev) * 15.0 + 1.0
+    return dt_bias, torch.log(A)
+
+
+def init_mamba2(model, gen: torch.Generator) -> dict:
+    """``model.init`` with every SSM block's ``dt_bias`` and ``A_log``
+    redrawn by ``mamba2_dt_A``: at the JAX package's init (dt_bias 0, A_log
+    N(0, 1)) the median head decays its state by about exp(-0.69 * 128)
+    over a chunk, so the carry between chunks would not show."""
+    params = model.init(gen)
+    for blk in params["blocks"]:
+        if "ssm" in blk:
+            dt_bias, A_log = mamba2_dt_A(gen, blk["ssm"]["dt_bias"].shape)
+            blk["ssm"]["dt_bias"].copy_(dt_bias)
+            blk["ssm"]["A_log"].copy_(A_log)
+    return params
+
+
+def counts() -> dict:
+    return {"flash_attention": fa.flash_attention.launches,
+            "rmsnorm": rn.rmsnorm.launches, "ssd_scan": ssd.ssd_scan.launches}
+
+
+def reset_counts() -> None:
+    fa.flash_attention.launches = rn.rmsnorm.launches = ssd.ssd_scan.launches = 0
 
 
 def phase_device() -> None:
@@ -183,17 +254,19 @@ def phase_device() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = build.build_all()
+    libs = build.build_all()  # one nvcc per source, all started together
     t1 = time.perf_counter()
     x = torch.ones((4, 128), dtype=torch.bfloat16, device="cuda")
     rn.rmsnorm(x, x[0].contiguous())  # compiles the Triton kernel
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    build_s = {f"{name}_nvcc": build.BUILD_SECONDS.get(name)  # None: reused, not built
+               for name in sorted(libs)}
     info = {"name": torch.cuda.get_device_name(0),
             "capability": list(torch.cuda.get_device_capability(0)),
             "nvidia_smi": smi.splitlines()[0], "torch": torch.__version__,
             "cuda": torch.version.cuda, "libraries": sorted(libs),
-            "build_s": {"flash_attention_nvcc": t1 - t0, "rmsnorm_triton": t2 - t1}}
+            "build_s": {**build_s, "all_nvcc_wall": t1 - t0, "rmsnorm_triton": t2 - t1}}
     emit("device", **info)
 
 
@@ -220,7 +293,7 @@ def phase_flash(gen) -> dict:
             row["library_ms"] = time_ms(lambda *a: F.scaled_dot_product_attention(
                 *a, is_causal=causal, enable_gqa=True), args)
             row["bound_ms"], row["bound_by"] = bound(
-                4.0 * D * B * Hq * pairs, nbytes(q, k, v, out), dt)
+                nbytes(q, k, v, out), (4.0 * D * B * Hq * pairs, dt))
             case.update(row)
         emit("kernel flash_attention", **case)
     return row
@@ -242,8 +315,7 @@ def phase_rmsnorm(gen) -> dict:
                    "call_ms": call_ms(rn.rmsnorm, (x, s)),
                    "plain_ms": time_ms(rn.rmsnorm_plain, (x, s)),
                    "library_ms": time_ms(lambda a, b: F.rms_norm(a, (D,), b, 1e-5), (x, s))}
-            row["bound_ms"], row["bound_by"] = bound(
-                4.0 * x.numel(), nbytes(x, s, out), dt)
+            row["bound_ms"], row["bound_by"] = bound(nbytes(x, s, out), (4.0 * x.numel(), dt))
             case.update(row)
         elif i == 1:
             case["ms"] = time_ms(rn.rmsnorm, (x, s))
@@ -251,57 +323,145 @@ def phase_rmsnorm(gen) -> dict:
     return row
 
 
-def phase_prefill(cfg, model, params, gen) -> dict:
-    tokens = torch.randint(0, cfg.vocab, (2, 1024), generator=gen, device="cuda")
+def ssd_inputs(gen, B, S, H, P, N, dtype, kind: str) -> tuple:
+    """x, dt, A, Bm, Cm for one SSD_CASES row (see there for ``kind``)."""
+    x = randn(gen, (B, S, H, P), dtype)
+    Bm = randn(gen, (B, S, N), dtype)
+    Cm = randn(gen, (B, S, N), dtype)
+    if kind == "mamba2":
+        dt_bias, A_log = mamba2_dt_A(gen, (H,))
+        dt = F.softplus(randn(gen, (B, S, H), torch.float32) + dt_bias)
+        A = -torch.exp(A_log)
+    else:
+        dt = torch.rand((B, S, H), generator=gen, device="cuda") * 9e-3 + 1e-3
+        A = -torch.exp(randn(gen, (H,), torch.float32))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_restarted(x, dt, A, Bm, Cm, *, chunk: int):
+    """The plain scan with every chunk started from a zero state: what a
+    kernel that dropped the carry between chunks would give."""
+    B, S, H, P = x.shape
+    q = ssd.chunk_len(S, chunk)
+    n = B * (S // q)
+    y = ssd.ssd_scan_plain(x.reshape(n, q, H, P), dt.reshape(n, q, H), A,
+                           Bm.reshape(n, q, -1), Cm.reshape(n, q, -1), chunk=q)
+    return y.reshape(B, S, H, P)
+
+
+def phase_ssd(gen) -> dict:
+    """Every case is compared before a failure raises, so that one run shows
+    which cases a faulty kernel fails."""
+    row, failed = None, []
+    for B, S, H, P, N, chunk, dt, kind in SSD_CASES:
+        args = ssd_inputs(gen, B, S, H, P, N, dt, kind)
+        out = ssd.ssd_scan(*args, chunk=chunk)
+        ref = ssd.ssd_scan_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        restarted = ssd_restarted(*args, chunk=chunk)
+        case = {"shape": [B, S, H, P, N], "chunk": chunk, "dtype": str(dt), "dt": kind,
+                "tol": SSD_TOL, "rel_rms_err": ((out - ref).norm() / ref.norm()).item(),
+                # how far the output is from one that drops the carry
+                "carry_rel_rms": ((restarted - ref).norm() / ref.norm()).item()}
+        try:
+            case["max_abs_err"] = close(out, ref, SSD_TOL)
+        except AssertionError as err:
+            case["error"] = str(err)
+            failed.append(case)
+        del out, ref, restarted
+        if row is None:  # the main path's shape: time it
+            q = ssd.chunk_len(S, chunk)
+            # The work the scan needs: C B^T on the causal pairs once per
+            # (b, chunk), since all heads share one B and C, in the type of
+            # B and C (bf16 x bf16 products are exact in f32); per (b, h,
+            # chunk), M x on the causal pairs, C state and the state update,
+            # every one an f32 x f32 product.  The kernel does more: it
+            # forms C B^T for every head and in f32.
+            cbt = B * (S // q) * q * (q + 1) * N
+            per_head = B * H * (S // q) * (q * (q + 1) * P + 4 * q * N * P)
+            moved = nbytes(*args) + B * S * H * P * 4  # y is f32
+            row = {"max_abs_err": case.get("max_abs_err"),
+                   "ms": time_ms(lambda *a: ssd.ssd_scan(*a, chunk=chunk), args),
+                   "call_ms": call_ms(lambda *a: ssd.ssd_scan(*a, chunk=chunk), args),
+                   "plain_ms": time_ms(lambda *a: ssd.ssd_scan_plain(*a, chunk=chunk),
+                                       args, iters=4),
+                   "library_ms": None}  # no single PyTorch call computes the scan
+            row["bound_ms"], row["bound_by"] = bound(
+                moved, (cbt, args[3].dtype), (per_head, torch.float32))
+            case.update(row)
+        emit("kernel ssd_scan", ok="error" not in case, **case)
+    if failed:
+        raise AssertionError(f"ssd_scan disagrees with its plain version in "
+                             f"{len(failed)} case(s): {failed}")
+    return row
+
+
+def phase_prefill(cfg, model, params, gen, shape, bounds=(LOGIT_REL_RMS, LOGIT_MAX_ABS)
+                  ) -> dict:
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen, device="cuda")
     batch = {"tokens": tokens}
     model.prefill(params, batch)  # warm-up
     torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
-    rn.rmsnorm.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     logits = model.prefill(params, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "rmsnorm": rn.rmsnorm.launches}
-    if launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"flash_attention launched {launches['flash_attention']} "
-                             f"times in one prefill, expected {cfg.n_layers}")
+    launches = counts()
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    want = {"flash_attention": n_attn, "rmsnorm": 0, "ssd_scan": cfg.n_layers - n_attn}
+    if launches != want:
+        raise AssertionError(f"one prefill launched {launches}, expected {want}")
     ref = Model(cfg, impl="reference", device="cuda").forward(params, batch)
-    check = logit_check("prefill kernel vs reference", logits, ref)
+    check = logit_check("prefill kernel vs reference", logits, ref, bounds)
     emit("prefill", arch=cfg.name, batch=list(tokens.shape), layers=cfg.n_layers,
          params=sum(t.numel() for t in _leaves(params)), launches=launches,
          seconds=dt, tokens_per_s=tokens.numel() / dt, **check)
     return launches
 
 
-def phase_serve(cfg, model, params) -> None:
+def phase_serve(cfg, model, params, *, check_len: int = 0,
+                bounds=(LOGIT_REL_RMS, LOGIT_MAX_ABS)) -> None:
+    """The engine answers four requests.  Then the engine path
+    (``decode_step`` token by token) is held to the kernel prefill: at the
+    last position of the first prompt, or, with ``check_len``, at every
+    position of a sequence of that many tokens."""
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab, size=rng.integers(3, 9)).tolist()
                for _ in range(4)]
     eng = Engine(model, params, ServeConfig(max_len=64, batch_slots=2))
+    reset_counts()
     t0 = time.perf_counter()
     ids = [eng.submit(p, max_new=8) for p in prompts]
     results = eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    engine_launches = counts()
     if sorted(results) != ids or any(len(results[i]) != 8 for i in ids):
         raise AssertionError(f"engine results incomplete: {results}")
     vocab_ok = all(0 <= t < cfg.vocab_p for i in ids for t in results[i])
     if not vocab_ok:
         raise AssertionError(f"token out of vocabulary: {results}")
-    # the engine path (decode_step token by token) against the kernel prefill
-    p = prompts[0]
-    last = model.prefill(params, {"tokens": torch.tensor([p], device="cuda")})[0, -1]
-    caches = model.init_cache(1, 64)
-    for pos, t in enumerate(p):
+    seq = (rng.integers(1, cfg.vocab, size=check_len).tolist() if check_len
+           else prompts[0])
+    reset_counts()
+    pre = model.prefill(params, {"tokens": torch.tensor([seq], device="cuda")})[0]
+    caches = model.init_cache(1, max(64, len(seq)))
+    steps = []
+    for pos, t in enumerate(seq):
         logits, caches = model.decode_step(params, torch.tensor([t], device="cuda"),
                                            caches, pos)
-    check = logit_check("prefill vs decode_step", last, logits[0])
+        steps.append(logits[0])
+    if check_len:
+        check = logit_check("prefill vs decode_step", pre, torch.stack(steps), bounds)
+    else:
+        check = logit_check("prefill vs decode_step", pre[-1], steps[-1], bounds)
+    check.update(tokens=len(seq), positions=len(seq) if check_len else 1,
+                 launches=counts())
     total = sum(len(v) for v in results.values())
-    emit("serve", requests=len(ids), prompt_lens=[len(p) for p in prompts],
+    emit("serve", arch=cfg.name, requests=len(ids), prompt_lens=[len(p) for p in prompts],
          max_new=8, slots=2, generated=total, seconds=dt, tokens_per_s=total / dt,
-         prefill_vs_decode=check)
+         launches=engine_launches, prefill_vs_decode=check)
 
 
 def _leaves(tree):
@@ -320,15 +480,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen_ssm = torch.Generator(device="cuda").manual_seed(SEED + 1)  # the SSM phases'
     with torch.inference_mode():
         phase_device()
         fa_row = phase_flash(gen)
         rn_row = phase_rmsnorm(gen)
+        ssd_row = phase_ssd(gen_ssm)
         cfg = get_config("qwen3_4b")
         model = Model(cfg, device="cuda")
         params = model.init(gen)
-        launches = phase_prefill(cfg, model, params, gen)
+        launches = phase_prefill(cfg, model, params, gen, (2, 1024))
         phase_serve(cfg, model, params)
+        del model, params
+        torch.cuda.empty_cache()
+        cfg = get_config("mamba2_130m")
+        model = Model(cfg, device="cuda")
+        params = init_mamba2(model, gen_ssm)
+        ssm_launches = phase_prefill(cfg, model, params, gen_ssm, (4, 4096),
+                                     SSM_LOGIT_BOUNDS)
+        phase_serve(cfg, model, params, check_len=256, bounds=SSM_LOGIT_BOUNDS)
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -338,6 +508,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/rmsnorm.py",
          "replaces": "src/repro/kernels/rmsnorm.py:22",
          "launches": launches["rmsnorm"], **rn_row},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:65",
+         "launches": ssm_launches["ssd_scan"], **ssd_row},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

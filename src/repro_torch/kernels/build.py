@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  The library
 goes to ``build/`` beside this file (listed in ``.gitignore``), named by a
 digest of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused.  A failed build raises.  Nothing is built when the
-module is imported.
+unchanged one is reused.  The missing libraries are built in parallel, one
+``nvcc`` for each source, all started together.  A failed build raises.
+Nothing is built when the module is imported.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -25,6 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# seconds from the start of the builds to the end of each source's nvcc, in
+# this process (built sources only)
+BUILD_SECONDS: dict[str, float] = {}
 
 
 @functools.cache
@@ -64,22 +69,37 @@ def target(src: Path) -> Path:
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every source whose library is missing.  Returns name -> library
-    path; raises with the tail of ``nvcc``'s log if a build fails."""
+    """Compile every source whose library is missing, one ``nvcc`` each, all
+    started together, and record each one's seconds in ``BUILD_SECONDS``.
+    Returns name -> library path; raises with the tail of ``nvcc``'s log if
+    a build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    out = {}
+    out = {src.stem: target(src) for src in sources()}
+    running = {}
+    t0 = time.perf_counter()
     for src in sources():
-        lib = out[src.stem] = target(src)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {src.name}: nvcc exit "
-                               f"{proc.returncode}\n{(proc.stdout + proc.stderr)[-4000:]}")
-        os.replace(tmp, lib)
+        lib = out[src.stem]
+        if not lib.exists():
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            log = open(lib.with_suffix(".log"), "w")
+            running[src] = (subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                             stdout=log, stderr=subprocess.STDOUT), log, tmp)
+    errors = []
+    while running:
+        for src, (proc, log, tmp) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            BUILD_SECONDS[src.stem] = time.perf_counter() - t0
+            log.close()
+            del running[src]
+            if proc.returncode == 0:
+                os.replace(tmp, out[src.stem])
+            else:
+                errors.append(f"{src.name}: nvcc exit {proc.returncode}\n"
+                              f"{Path(log.name).read_text()[-4000:]}")
+        time.sleep(0.05)
+    if errors:
+        raise RuntimeError("kernel build failed: " + "\n".join(errors))
     return out
 
 

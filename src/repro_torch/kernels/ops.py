@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from . import flash_attention as _fa
 from . import rmsnorm as _rn
+from . import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -23,3 +24,10 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     if x.device.type == "cpu":
         return _rn.rmsnorm_plain(x, scale, eps=eps)
     return _rn.rmsnorm(x, scale, eps=eps)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm/Cm: (B,S,N) -> y (B,S,H,P) f32."""
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)

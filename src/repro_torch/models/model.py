@@ -1,14 +1,18 @@
-"""Model: config-driven decoder stacks (dense attention-only families so far).
+"""Model: config-driven decoder stacks (dense, SSM and hybrid families without
+experts or frontends so far).
 
 Layers are stored **stacked by block position**, as in the JAX package:
 ``params["blocks"][j]`` holds the parameters of layers ``j, j+P, j+2P, ...``
 (P = cfg.block_period) with a leading ``n_blocks`` dim.  The forward pass is
 a Python loop over layers.
 
-``impl="kernel"`` (the default) runs prefill/forward attention through the
-flash-attention kernel, the counterpart of the JAX ``impl="pallas"``;
-``impl="reference"`` keeps ``chunked_attention``.  Decode always uses
-``chunked_attention``.
+Each layer mixes with attention or with an SSD block, as
+``cfg.is_attn_layer`` says for its block position.  ``impl="kernel"`` (the
+default) runs prefill/forward attention through the flash-attention kernel
+and the SSD scan through its kernel, the counterpart of the JAX
+``impl="pallas"``; ``impl="reference"`` keeps ``chunked_attention`` and
+``ssd_chunked``.  Decode bypasses both kernels (``chunked_attention`` and
+the O(1) ``ssm_decode`` recurrence).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.parallel.ctx import ParallelCtx
 from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache
 from .mlp import mlp_fwd, mlp_init
 from .modules import _init, linear_init, rmsnorm, rmsnorm_init
+from .ssm import ssm_decode, ssm_fwd, ssm_init, ssm_init_cache
 
 IMPLS = ("kernel", "reference")
 
@@ -50,9 +55,9 @@ def _tree_index(tree, i: int):
 class Model:
     def __init__(self, cfg: ArchConfig, ctx: ParallelCtx = ParallelCtx.single(),
                  impl: str = "kernel", device="cuda"):
-        if cfg.ssm_state or cfg.n_experts or cfg.frontend != "none":
+        if cfg.n_experts or cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.name}: only dense attention-only configs are ported so far")
+                f"{cfg.name}: configs with experts or a frontend are not ported yet")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.cfg = cfg
@@ -78,9 +83,12 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = linear_init(generator, cfg.d_model, cfg.vocab_p, dtype=dt)
         blocks = []
-        for _ in range(P):
-            blk = {"ln1": rmsnorm_init(generator, cfg.d_model, dt, (nb,)),
-                   "attn": attn_init(generator, cfg, stacked=(nb,), dtype=dt)}
+        for j in range(P):
+            blk = {"ln1": rmsnorm_init(generator, cfg.d_model, dt, (nb,))}
+            if cfg.is_attn_layer(j):
+                blk["attn"] = attn_init(generator, cfg, stacked=(nb,), dtype=dt)
+            else:
+                blk["ssm"] = ssm_init(generator, cfg, stacked=(nb,), dtype=dt)
             if cfg.d_ff > 0:
                 blk["ln2"] = rmsnorm_init(generator, cfg.d_model, dt, (nb,))
                 blk["mlp"] = mlp_init(generator, cfg, cfg.d_ff, stacked=(nb,), dtype=dt)
@@ -105,11 +113,14 @@ class Model:
         return x @ w
 
     # ------------------------------------------------------------------ layers
-    def _layer_fwd(self, lparams, x, positions):
+    def _layer_fwd(self, lparams, x, positions, j: int):
         cfg, ctx = self.cfg, self.ctx
         h = ctx.sp_exit(x)
         hn = rmsnorm(lparams["ln1"], h, cfg.norm_eps)
-        x = x + attn_fwd(cfg, ctx, lparams["attn"], hn, positions, impl=self.impl)
+        if cfg.is_attn_layer(j):
+            x = x + attn_fwd(cfg, ctx, lparams["attn"], hn, positions, impl=self.impl)
+        else:
+            x = x + ssm_fwd(cfg, ctx, lparams["ssm"], hn, impl=self.impl)
         if "ln2" in lparams:
             h = ctx.sp_exit(x)
             hn = rmsnorm(lparams["ln2"], h, cfg.norm_eps)
@@ -127,7 +138,7 @@ class Model:
         P = cfg.block_period
         for li in range(cfg.n_layers):
             lp = _tree_index(params["blocks"][li % P], li // P)
-            x = self._layer_fwd(lp, x, positions)
+            x = self._layer_fwd(lp, x, positions, li % P)
         x = ctx.sp_exit(x)
         x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return self._head(params, x)
@@ -141,14 +152,20 @@ class Model:
 
     # ------------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int) -> tuple:
-        """Stacked per-block-position KV caches, zeroed, on the model's device."""
+        """Stacked per-block-position caches (KV for attention layers, SSD
+        state and conv buffers for SSM layers), zeroed, on the model's
+        device."""
         cfg = self.cfg
         P = cfg.block_period
         nb = cfg.n_layers // P
         caches = []
-        for _ in range(P):
-            c = attn_init_cache(cfg, batch, max_len, self.ctx.tp_size, dtype=self.dtype,
-                                device=self.device)
+        for j in range(P):
+            if cfg.is_attn_layer(j):
+                c = attn_init_cache(cfg, batch, max_len, self.ctx.tp_size,
+                                    dtype=self.dtype, device=self.device)
+            else:
+                c = ssm_init_cache(cfg, batch, self.ctx.tp_size, dtype=self.dtype,
+                                   device=self.device)
             caches.append({k: v.new_zeros((nb, *v.shape)) for k, v in c.items()})
         return tuple(caches)
 
@@ -164,8 +181,13 @@ class Model:
             for j in range(P):
                 lp = _tree_index(params["blocks"][j], i)
                 hn = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-                mix, _ = attn_decode(cfg, ctx, lp["attn"], hn,
-                                     _tree_index(caches[j], i), position)
+                cache = _tree_index(caches[j], i)  # views into the stacked cache
+                if cfg.is_attn_layer(j):  # writes its KV cache in place
+                    mix, _ = attn_decode(cfg, ctx, lp["attn"], hn, cache, position)
+                else:  # returns new tensors: copy them into the views
+                    mix, new = ssm_decode(cfg, ctx, lp["ssm"], hn, cache)
+                    for name, t in new.items():
+                        cache[name].copy_(t)
                 x = x + mix
                 if "ln2" in lp:
                     hn = rmsnorm(lp["ln2"], x, cfg.norm_eps)

@@ -47,6 +47,26 @@ def rmsnorm(p, x, eps: float = 1e-5):
     return (xf * torch.rsqrt(var + eps)).to(dt) * p["s"]
 
 
+def gated_rmsnorm(p, x, z, eps: float = 1e-5, group: int = 0):
+    """Mamba-2 style RMSNormGated: norm(x * silu(z)) * scale.
+
+    ``group`` > 0 normalizes over groups of that many channels (one group per
+    SSD head).  Rounds where JAX rounds: silu(z) in f32 rounded to x's dtype,
+    the product in x's dtype, the norm in f32 rounded to x's dtype, then
+    ``* scale``."""
+    dt = x.dtype
+    xf = (x * F.silu(z.float()).to(dt)).float()
+    if group and group < xf.shape[-1]:
+        shp = xf.shape
+        xg = xf.reshape(*shp[:-1], shp[-1] // group, group)
+        var = (xg * xg).mean(dim=-1, keepdim=True)
+        xf = (xg * torch.rsqrt(var + eps)).reshape(shp)
+    else:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        xf = xf * torch.rsqrt(var + eps)
+    return xf.to(dt) * p["s"]
+
+
 # -- rotary position embeddings ----------------------------------------------
 
 

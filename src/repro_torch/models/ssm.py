@@ -1,0 +1,207 @@
+"""Mamba-2 SSD (state-space duality) block [arXiv:2405.21060].
+
+Port of the JAX package's ``models/ssm.py``.  ``ssd_chunked`` is the
+semantic reference, the chunked SSD algorithm in plain torch:
+
+  within chunk:  Y_diag = (C B^T ⊙ L) · (dt x)        (attention-like products)
+  chunk states:  S_c    = Σ_k decay_to_end · dt_k B_k x_k^T
+  across chunks: S_c   <- S_{c-1} · Π decay + S_c      (short loop over chunks)
+  offset:        Y_off  = decay_from_start · C S_{c-1}
+
+``ssm_fwd(impl="kernel")`` runs the SSD scan kernel instead
+(``repro_torch.kernels.ops``).  Decode keeps O(1) state per head and
+bypasses the kernel, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ssd_scan import chunk_len
+from repro_torch.parallel.ctx import ParallelCtx
+
+from .modules import _init, gated_rmsnorm, linear, linear_init, rmsnorm_init
+
+
+def ssm_init(generator, cfg, *, stacked: tuple = (), dtype=torch.bfloat16):
+    D, N = cfg.d_model, cfg.ssm_state
+    DI = cfg.d_inner_p  # padded inner width (TP divisibility)
+    H = cfg.ssm_heads_p
+    dev = generator.device
+    return {
+        "wx": linear_init(generator, D, DI, dtype=dtype, stacked=stacked),
+        "wz": linear_init(generator, D, DI, dtype=dtype, stacked=stacked),
+        "wB": linear_init(generator, D, N, dtype=dtype, stacked=stacked),
+        "wC": linear_init(generator, D, N, dtype=dtype, stacked=stacked),
+        "wdt": linear_init(generator, D, H, dtype=dtype, stacked=stacked),
+        "dt_bias": torch.zeros((*stacked, H), dtype=torch.float32, device=dev),
+        "A_log": _init(generator, (*stacked, H), 1.0, torch.float32),
+        "Dskip": torch.ones((*stacked, H), dtype=torch.float32, device=dev),
+        "conv_x": _init(generator, (*stacked, cfg.ssm_conv, DI), 1.0, dtype),
+        "conv_B": _init(generator, (*stacked, cfg.ssm_conv, N), 1.0, dtype),
+        "conv_C": _init(generator, (*stacked, cfg.ssm_conv, N), 1.0, dtype),
+        "out_norm": rmsnorm_init(generator, DI, dtype, stacked),
+        "wo": linear_init(generator, DI, D, dtype=dtype, stacked=stacked),
+    }
+
+
+def _causal_conv(x, w):
+    """Depthwise causal conv along seq: x (B,S,C), w (K,C).  Adds tap by tap
+    in x's dtype, as the JAX version does (``F.conv1d`` would accumulate in
+    f32, and through cuDNN in TF32)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + xp[:, k:k + S, :] * w[k]
+    return out
+
+
+def _segsum(dA):
+    """Cumulative within-chunk log-decay differences.
+    dA: (..., Q) -> (..., Q, Q) lower-triangular sums dA[j+1..i]."""
+    Q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # sum over (j, i]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=dA.device).tril()
+    return torch.where(mask, diff, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None, return_state: bool = False,
+                unroll: bool = False):
+    """SSD scan.  x: (B,S,H,P), dt: (B,S,H) (post-softplus), A: (H,) negative,
+    Bm/Cm: (B,S,N).  Returns y: (B,S,H,P) [, final_state (B,H,P,N)].
+    ``unroll`` is accepted for the JAX signature; the chunk loop is always
+    Python."""
+    del unroll
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk_len(S, chunk)
+    nc = S // Q
+    f32 = torch.float32
+
+    xc = x.reshape(Bsz, nc, Q, H, P)
+    dtc = dt.reshape(Bsz, nc, Q, H).float()
+    Bc = Bm.reshape(Bsz, nc, Q, N).float()
+    Cc = Cm.reshape(Bsz, nc, Q, N).float()
+    dA = dtc * A  # (B,nc,Q,H) log-decay per step
+
+    # within-chunk ("diagonal") term
+    L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    att = scores[:, :, None, :, :] * L  # (B,nc,H,Q,K); L zero above diagonal
+    xdt = xc.float() * dtc[..., None]  # (B,nc,Q,H,P)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", att, xdt)
+
+    # per-chunk states
+    cum = torch.cumsum(dA, dim=2)  # (B,nc,Q,H)
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
+    states = torch.einsum("bckn,bckh,bckhp->bchpn", Bc, decay_end * dtc, xc.float())
+
+    # inter-chunk recurrence
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
+    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) if init_state is None
+         else init_state.float())
+    prevs = []
+    for ci in range(nc):
+        prevs.append(s)
+        s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    prev = torch.stack(prevs, dim=1)  # (B,nc,H,P,N) state entering each chunk
+
+    decay_start = torch.exp(cum)  # (B,nc,Q,H)
+    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc, prev, decay_start)
+
+    y = (y_diag + y_off).reshape(Bsz, S, H, P)
+    if return_state:
+        return y, s
+    return y
+
+
+def ssm_fwd(cfg, ctx: ParallelCtx, p, x, *, impl: str = "reference",
+            unroll: bool = False):
+    """Full-sequence SSD block.  x: (B, S, D) replicated."""
+    B, S, D = x.shape
+    P = cfg.ssm_head_dim
+    xproj = linear(p["wx"], x)  # (B,S,DI_loc) column-parallel over heads
+    z = linear(p["wz"], x)
+    Bm = linear(p["wB"], x)  # replicated (single SSD group)
+    Cm = linear(p["wC"], x)
+    dt_raw = linear(p["wdt"], x).float()  # (B,S,H_loc)
+
+    xproj = F.silu(_causal_conv(xproj, p["conv_x"]))
+    Bm = F.silu(_causal_conv(Bm, p["conv_B"]))
+    Cm = F.silu(_causal_conv(Cm, p["conv_C"]))
+
+    H_loc = xproj.shape[-1] // P
+    # dt is head-wise; under TP wdt is column-sharded to the local heads
+    dt = F.softplus(dt_raw + p["dt_bias"][..., :H_loc])
+    A = -torch.exp(p["A_log"][..., :H_loc].float())
+    xh = xproj.reshape(B, S, H_loc, P)
+    if impl == "kernel":
+        y = kops.ssd_scan(xh.contiguous(), dt.contiguous(), A.contiguous(),
+                          Bm.contiguous(), Cm.contiguous(), chunk=cfg.ssm_chunk)
+    else:
+        y = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, unroll=unroll)
+    y = y + p["Dskip"][..., :H_loc][..., None] * xh.float()
+    y = y.reshape(B, S, H_loc * P).to(x.dtype)
+    y = gated_rmsnorm(p["out_norm"], y, z, cfg.norm_eps, group=cfg.ssm_head_dim)
+    out = linear(p["wo"], y)  # row-parallel
+    return ctx.sp_enter(out)
+
+
+def ssm_init_cache(cfg, batch: int, tp_size: int = 1, dtype=torch.bfloat16,
+                   device="cpu"):
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H_loc = cfg.ssm_heads_p // tp_size
+    DI_loc = H_loc * P
+    K = cfg.ssm_conv
+    return {
+        "state": torch.zeros((batch, H_loc, P, N), dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, K - 1, DI_loc), dtype=dtype, device=device),
+        "conv_B": torch.zeros((batch, K - 1, N), dtype=dtype, device=device),
+        "conv_C": torch.zeros((batch, K - 1, N), dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(cfg, ctx: ParallelCtx, p, x, cache):
+    """Single-token SSD step: O(1) state update.  x: (B, 1, D).  Returns the
+    output and new cache tensors (``cache`` itself is not written)."""
+    B = x.shape[0]
+    P = cfg.ssm_head_dim
+    xproj = linear(p["wx"], x)[:, 0]  # (B, DI_loc)
+    z = linear(p["wz"], x)[:, 0]
+    Bm = linear(p["wB"], x)[:, 0]
+    Cm = linear(p["wC"], x)[:, 0]
+    dt_raw = linear(p["wdt"], x)[:, 0].float()
+
+    def conv_step(buf, new, w):
+        # buf: (B, K-1, C) previous inputs; new: (B, C)
+        full = torch.cat([buf, new[:, None]], dim=1)  # (B,K,C)
+        out = torch.einsum("bkc,kc->bc", full, w)
+        return out, full[:, 1:]
+
+    cx, ncx = conv_step(cache["conv_x"], xproj, p["conv_x"])
+    cB, ncB = conv_step(cache["conv_B"], Bm, p["conv_B"])
+    cC, ncC = conv_step(cache["conv_C"], Cm, p["conv_C"])
+    cx = F.silu(cx)
+    cB = F.silu(cB).float()
+    cC = F.silu(cC).float()
+
+    H_loc = cx.shape[-1] // P
+    dt = F.softplus(dt_raw + p["dt_bias"][..., :H_loc])  # (B,H)
+    A = -torch.exp(p["A_log"][..., :H_loc].float())
+    xh = cx.reshape(B, H_loc, P).float()
+    decay = torch.exp(dt * A)  # (B,H)
+    h = cache["state"] * decay[..., None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dt, cB, xh)
+    y = torch.einsum("bn,bhpn->bhp", cC, h) + p["Dskip"][..., :H_loc, None] * xh
+    y = y.reshape(B, 1, H_loc * P).to(x.dtype)
+    y = gated_rmsnorm(p["out_norm"], y, z[:, None], cfg.norm_eps, group=cfg.ssm_head_dim)
+    out = linear(p["wo"], y)
+    return ctx.sp_enter(out), {
+        "state": h,
+        "conv_x": ncx,
+        "conv_B": ncB,
+        "conv_C": ncC,
+    }

@@ -1,6 +1,6 @@
-"""The port's kernel module on the CPU: plain versions of the flash-attention
-and RMSNorm kernels held to the JAX oracles and to the Pallas kernels run in
-interpret mode, and the torch oracles held to the JAX oracles.  Inputs come
+"""The port's kernel module on the CPU: plain versions of the flash-attention,
+RMSNorm and SSD-scan kernels held to the JAX oracles and to the Pallas kernels
+run in interpret mode, and the torch oracles held to the JAX oracles.  Inputs come
 from numpy with a fixed seed.  On the CPU the public ops take the plain
 versions and no kernel is launched."""
 import numpy as np
@@ -16,6 +16,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 SHAPES = [  # tests/test_kernels.py's flash-attention shapes
     (1, 2, 2, 128, 128, 64),
@@ -28,6 +29,7 @@ DTYPES = ["float32", "bfloat16"]
 # one compiled program per shape instead of one per jnp op
 _attention_ref = jax.jit(jref.attention_ref, static_argnames="causal")
 _rmsnorm_ref = jax.jit(jref.rmsnorm_ref)
+_ssd_ref = jax.jit(jref.ssd_ref)
 
 
 def _tol(dtype):
@@ -53,6 +55,7 @@ def _np(x):
 def _assert_no_launch():
     assert fa.flash_attention.launches == 0
     assert rn.rmsnorm.launches == 0
+    assert ssd.ssd_scan.launches == 0
 
 
 # causal with Sq != Sk: the kernels align the mask top-left, the oracle
@@ -139,4 +142,100 @@ def test_ops_raise_off_cpu_without_kernel():
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         ops.rmsnorm(torch.empty((4, 128), device="meta"), torch.empty(128, device="meta"))
+    _assert_no_launch()
+
+
+# tests/test_kernels.py's SSD shapes (B, S, H, P, N, chunk), then a case whose
+# chunks carry their state: dt uniform in [1e-3, 1e-2] keeps about
+# exp(-0.35) of it across a chunk of 64 (the others forget it within a chunk)
+SSD_SHAPES = [
+    (1, 128, 2, 32, 16, 32, False),
+    (2, 256, 3, 64, 32, 64, False),
+    (1, 64, 1, 16, 8, 64, False),  # single chunk
+    (1, 512, 2, 32, 128, 128, False),  # full state width
+    (2, 256, 3, 64, 32, 64, True),  # slow decay, four chunks
+]
+# tests/test_kernels.py's SSD tolerance: f32 sums taken in another order
+SSD_TOL = dict(rtol=5e-4, atol=5e-4)
+
+
+def ssd_inputs(B, S, H, P, N, slow: bool, seed: int = 0):
+    """numpy x, dt (post-softplus), A (negative), Bm, Cm, drawn as
+    tests/test_kernels.py draws them; ``slow`` draws dt uniform in
+    [1e-3, 1e-2] instead."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    if slow:
+        dt = rng.uniform(1e-3, 1e-2, (B, S, H)).astype(np.float32)
+    else:
+        dt = np.logaddexp(rng.standard_normal((B, S, H)), 0.0).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.5)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_pairs(arrays, dtype: str):
+    """JAX arrays and torch tensors of the same values; x, Bm and Cm in
+    ``dtype``, dt and A in f32 (as the models pass them)."""
+    x, dt, A, Bm, Cm = arrays
+    (jx, tx), (jb, tb), (jc, tc) = (_pair(a, dtype) for a in (x, Bm, Cm))
+    return ((jx, jnp.asarray(dt), jnp.asarray(A), jb, jc),
+            (tx, torch.from_numpy(dt), torch.from_numpy(A), tb, tc))
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_plain_vs_pallas_interpret(shape, dtype):
+    """Both widen bf16 inputs to f32 first, so bf16 takes the f32 tolerance."""
+    *dims, chunk, slow = shape
+    j, t = _ssd_pairs(ssd_inputs(*dims, slow), dtype)
+    out = ops.ssd_scan(*t, chunk=chunk)
+    assert out.dtype == torch.float32 and out.shape == t[0].shape
+    np.testing.assert_allclose(
+        _np(out), _np(jops.ssd_scan(*j, chunk=chunk, interpret=True)), **SSD_TOL)
+    np.testing.assert_allclose(_np(out), _np(_ssd_ref(*j)), **SSD_TOL)
+    _assert_no_launch()
+
+
+def test_ssd_slow_decay_case_needs_the_carry():
+    """Restarting every chunk from a zero state (a kernel that drops the
+    carry) misses the slow-decay case by far more than the tolerance."""
+    *dims, chunk, slow = SSD_SHAPES[-1]
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in ssd_inputs(*dims, slow))
+    want = ref.ssd_ref(x, dt, A, Bm, Cm)
+    restarted = torch.cat([ref.ssd_ref(x[:, c:c + chunk], dt[:, c:c + chunk], A,
+                                       Bm[:, c:c + chunk], Cm[:, c:c + chunk])
+                           for c in range(0, x.shape[1], chunk)], dim=1)
+    assert (restarted - want).abs().max() > 100 * SSD_TOL["atol"]
+    np.testing.assert_allclose(_np(ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)),
+                               _np(want), **SSD_TOL)
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES[:2] + SSD_SHAPES[-1:])
+def test_ssd_ref_port_matches_jax(shape):
+    """The literal recurrence in both packages: f32, the same order of
+    operations step by step."""
+    *dims, _, slow = shape
+    j, t = _ssd_pairs(ssd_inputs(*dims, slow, seed=4), "float32")
+    np.testing.assert_allclose(_np(ref.ssd_ref(*t)), _np(_ssd_ref(*j)),
+                               rtol=5e-5, atol=5e-5)
+
+
+def test_ssd_sequence_not_a_multiple_of_the_chunk_raises():
+    _, t = _ssd_pairs(ssd_inputs(1, 96, 1, 16, 8, False), "float32")
+    with pytest.raises(ValueError, match="multiple"):
+        ops.ssd_scan(*t, chunk=64)
+    assert ops.ssd_scan(*t, chunk=128).shape == t[0].shape  # S <= chunk: one chunk
+    _assert_no_launch()
+
+
+def test_ssd_wrapper_refuses_cpu_and_meta_tensors():
+    """The kernel's wrapper launches or raises; it never computes on the CPU,
+    and ``ops.ssd_scan`` sends only CPU tensors to the plain version."""
+    _, t = _ssd_pairs(ssd_inputs(1, 64, 1, 16, 8, False), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan(*t, chunk=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(*(a.to("meta") for a in t), chunk=64)
     _assert_no_launch()

@@ -1,7 +1,9 @@
 """The port's model on the CPU against the JAX model: the same SMOKE weights
 (carried across with ``params_from_jax``) and the same numpy tokens give the
-same forward logits, and the same decode logits and KV caches."""
+same forward logits, and the same decode logits and caches (KV for attention
+layers, SSD state and conv buffers for SSM layers)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -13,29 +15,77 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ArchConfig, get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.weights import params_from_jax  # noqa: E402
 
-ARCHS = ["llama3_8b", "qwen3_4b"]
+ARCHS = ["llama3_8b", "qwen3_4b", "mamba2_130m"]
+# jamba's SMOKE without experts: a JAX-valid hybrid with attention at layer 2
+# of a period of 4 and SSD layers elsewhere, for the mixed cache tuple
+HYBRID = "jamba_1_5_large-noexperts"
 # f32: summation order only; bf16: the repo's bf16 kernel tolerance
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+# Configs with SSD layers in bf16 are held to relative RMS error instead, one
+# limit per kind of quantity.  A bf16 rounding that moves in one layer's
+# conv, silu or gated norm grows through the SSD state and the next layers:
+# at these SMOKE configs the port differs from the jitted JAX model by up to
+# 0.044 in forward logits, 0.074 in decode logits and 0.046 in a cache leaf,
+# the hybrid's KV leaves included (their max abs error, up to 0.14, fails
+# allclose at 5e-2, as does that of JAX's own eager run against its jitted
+# one: 0.086).  Five planted faults (a reversed conv, an ungrouped gated
+# norm, a dropped skip term, an undecayed decode state, a conv buffer not
+# written back) move every quantity they touch by at least 0.57 (logits)
+# and 0.118 (cache leaves).  The limits sit between the two.  The JAX
+# model's eager run differs from its jitted one by up to 0.156 in the
+# hybrid's forward logits, more than the logit limit: the port rounds
+# closer to the jitted model than the eager one does.
+# (tests/ssm_bf16_tolerances.py prints every reading.)  f32 above is the
+# exact check for those configs.
+SSM_BF16_REL_RMS = {"logits": 0.1, "cache": 0.09}
+
+
+def _assert_close(got, want, dtype: str, cfg, kind: str = "logits"):
+    got, want = _np(got), _np(want)
+    if dtype == "bfloat16" and cfg.ssm_state:
+        assert got.shape == want.shape
+        rel = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+        assert rel <= SSM_BF16_REL_RMS[kind], rel
+    else:
+        np.testing.assert_allclose(got, want, **TOL[dtype])
 
 
 def _np(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
-@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS for d in TOL],
+def _smoke_configs(arch: str):
+    """(JAX config, port config) at SMOKE size."""
+    if arch == HYBRID:
+        jcfg = dataclasses.replace(jax_config("jamba_1_5_large", smoke=True), n_experts=0)
+        return jcfg, ArchConfig(**dataclasses.asdict(jcfg))
+    return jax_config(arch, smoke=True), get_config(arch, smoke=True)
+
+
+@functools.cache
+def _f32_init(arch: str):
+    jcfg, _ = _smoke_configs(arch)
+    return jax.jit(JaxModel(dataclasses.replace(jcfg, dtype="float32")).init)(
+        jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS + [HYBRID] for d in TOL],
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def pair(request):
-    """(JAX model, JAX params, port config, port params) with shared weights."""
+    """(JAX model, JAX params, port config, port params) with shared weights.
+    Both dtypes take one f32 init, each leaf cast to the type that the
+    model's own init gives it (which gives the same values as that init)."""
     arch, dtype = request.param
-    jcfg = dataclasses.replace(jax_config(arch, smoke=True), dtype=dtype)
-    tcfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    jcfg, tcfg = (dataclasses.replace(c, dtype=dtype) for c in _smoke_configs(arch))
     jm = JaxModel(jcfg)
-    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    types = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    jp = jax.tree_util.tree_map(lambda a, t: a.astype(t.dtype), _f32_init(arch), types)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     return jm, jp, tcfg, tp, dtype
 
@@ -54,6 +104,9 @@ def test_config_port_matches_jax():
             assert (jc.hd, jc.heads, jc.kv_heads, jc.vocab_p, jc.block_period,
                     jc.param_count()) == (tc.hd, tc.heads, tc.kv_heads, tc.vocab_p,
                                           tc.block_period, tc.param_count())
+            assert (jc.d_inner_p, jc.ssm_heads_p) == (tc.d_inner_p, tc.ssm_heads_p)
+            assert ([jc.is_attn_layer(i) for i in range(jc.n_layers)]
+                    == [tc.is_attn_layer(i) for i in range(tc.n_layers)])
 
 
 @pytest.mark.parametrize("impl", ["kernel", "reference"])
@@ -64,8 +117,8 @@ def test_forward_matches_jax(pair, impl):
     got = Model(tcfg, impl=impl, device="cpu").forward(
         tp, {"tokens": torch.from_numpy(toks).long()})
     assert got.shape == want.shape and got.dtype == getattr(torch, dtype)
-    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
-    assert fa.flash_attention.launches == 0
+    _assert_close(got, want, dtype, tcfg)
+    assert fa.flash_attention.launches == 0 and ssd.ssd_scan.launches == 0
 
 
 def test_kernel_impl_matches_reference(pair):
@@ -87,10 +140,13 @@ def test_decode_matches_jax(pair, max_len):
     for t in range(6):
         jlog, jcache = step(jp, jnp.asarray(toks[:, t]), jcache, jnp.int32(t))
         tlog, tcache = tm.decode_step(tp, torch.from_numpy(toks[:, t]).long(), tcache, t)
-        np.testing.assert_allclose(_np(tlog), _np(jlog), **TOL[dtype])
+        _assert_close(tlog, jlog, dtype, tcfg)
+    assert len(tcache) == len(jcache) == tcfg.block_period
     for jc, tc in zip(jcache, tcache):
-        for name in ("k", "v"):
-            np.testing.assert_allclose(_np(tc[name]), _np(jc[name]), **TOL[dtype])
+        assert sorted(tc) == sorted(jc)
+        for name in jc:
+            assert tuple(tc[name].shape) == jc[name].shape
+            _assert_close(tc[name], jc[name], dtype, tcfg, "cache")
 
 
 def test_out_of_range_tokens_match_jax(pair):
@@ -101,21 +157,23 @@ def test_out_of_range_tokens_match_jax(pair):
     want = _np(jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)}))
     got = _np(Model(tcfg, device="cpu").forward(tp, {"tokens": torch.from_numpy(toks).long()}))
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-    # causal attention spreads a NaN row to the later positions; compare the
-    # positions before the first invalid id
+    # causal attention spreads a NaN row to the later positions (an SSD chunk
+    # to all its positions, through NaN * 0 in its masked scores); compare
+    # the positions before the first invalid id
     np.testing.assert_allclose(got[0, :2], want[0, :2], **TOL[dtype])
 
 
 def test_unported_families_and_missing_gpu_raise():
     cfg = get_config("qwen3_4b", smoke=True)
-    for change in ({"ssm_state": 16}, {"n_experts": 4, "top_k": 2},
-                   {"frontend": "audio_frames"}):
+    # experts (dense MoE, and a jamba-like hybrid with experts) and frontends
+    for change in ({"ssm_state": 16, "attn_period": 4, "n_experts": 4, "top_k": 2},
+                   {"n_experts": 4, "top_k": 2}, {"frontend": "audio_frames"}):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **change), device="cpu")
     with pytest.raises(ValueError):
         Model(cfg, impl="pallas", device="cpu")
     with pytest.raises(ModuleNotFoundError):
-        get_config("mamba2_130m")
+        get_config("mixtral_8x7b")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Model(cfg)
