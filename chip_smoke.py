@@ -7,20 +7,24 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 Phases, one JSON line each: device (name, capability, power limit, kernel
-builds), kernel flash_attention, kernel rmsnorm and kernel ssd_scan (kernel
-against its plain PyTorch version on the card, with times), then for each
-model at full width, with random weights from a seeded generator: prefill
-(through the kernels, checked against the reference path) and serve (the
-engine answers four requests; prefill logits are checked against the engine
-path's ``decode_step``).  The models are qwen3_4b (flash attention) and
+builds), kernel resources (each kernel's registers, stack and spills from
+the ``nvcc -Xptxas -v`` log, and its dynamic shared memory), kernel
+flash_attention, kernel rmsnorm and kernel ssd_scan (kernel against its
+plain PyTorch version on the card, with times), then for each model at full
+width, with random weights from a seeded generator: prefill (through the
+kernels, checked against the reference path) and serve (the engine answers
+four requests; prefill logits are checked against the engine path's
+``decode_step``).  The models are qwen3_4b (flash attention) and
 mamba2_130m (the SSD scan).  Then a ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
 not 0; without a CUDA device the script exits 1 before any phase.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -86,6 +90,13 @@ FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal
     (1, 4, 1, 160, 96, 64, torch.float32, True),  # causal Sq > Sk, top-left
     (1, 2, 2, 256, 256, 128, torch.float32, True),
     (2, 4, 2, 128, 128, 64, torch.bfloat16, True),
+    # bf16 edges of the TMA tiles: Sq, Sk past a 128-row tile's end with B*H > 1
+    # (rows past a head's end must read as zeros), GQA groups of 4 and 8,
+    # causal Sq < Sk and Sq > Sk, and D = 32 and 64
+    (2, 8, 2, 200, 330, 128, torch.bfloat16, True),
+    (2, 8, 1, 330, 200, 64, torch.bfloat16, True),
+    (2, 16, 4, 257, 257, 128, torch.bfloat16, False),
+    (2, 8, 1, 100, 100, 32, torch.bfloat16, True),
 ]
 RN_CASES = [  # rows, D, dtype; the first two are timed
     (2048, 2560, torch.bfloat16),  # d_model rows of a (2, 1024) prefill
@@ -106,6 +117,14 @@ SSD_CASES = [
     (2, 256, 4, 32, 64, 64, torch.float32, "slow"),  # 4 chunks
     (2, 2048, 8, 64, 128, 128, torch.float32, "slow"),  # 16 chunks: the carry case
     (2, 2048, 8, 64, 128, 128, torch.bfloat16, "slow"),
+    # the bf16 path's other shapes: Jamba's head dim (H=128, P=128, N=128),
+    # q = 100 and 3 ragged chunks, N not a multiple of 16, P = 16; P = 128 in f32
+    (1, 2048, 128, 128, 128, 128, torch.bfloat16, "slow"),
+    (1, 100, 2, 64, 128, 128, torch.bfloat16, "mamba2"),
+    (1, 300, 3, 32, 40, 100, torch.bfloat16, "slow"),
+    (1, 96, 3, 16, 24, 32, torch.bfloat16, "slow"),
+    (2, 256, 4, 16, 64, 64, torch.bfloat16, "mamba2"),
+    (1, 256, 4, 128, 64, 64, torch.float32, "slow"),
 ]
 
 
@@ -270,6 +289,54 @@ def phase_device() -> None:
     emit("device", **info)
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_bf16<128>`` from the mangled name of a kernel in an
+    anonymous namespace."""
+    i, name = mangled.index("N") + 1, ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    m = re.match(r"ILi(\d+)E", mangled[i:])
+    return name + (f"<{m[1]}>" if m else "")
+
+
+def phase_resources() -> None:
+    """Each kernel's registers, stack and spills from its library's
+    ``nvcc -Xptxas -v`` log, and the dynamic shared memory a block asks for."""
+    fa_lib, ssd_lib = build.load("flash_attention"), build.load("ssd_scan")
+    fa_smem, ssd_smem = fa_lib.repro_flash_attention_smem_bytes, ssd_lib.repro_ssd_scan_smem_bytes
+    fa_smem.restype, ssd_smem.restype = ctypes.c_int, ctypes.c_int
+    fa_smem.argtypes, ssd_smem.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
+    smem = {}
+    for D in fa.HEAD_DIMS:
+        smem[f"flash_fwd_bf16<{D}>"] = fa_smem(1, D)
+        smem[f"flash_fwd_f32<{D}>"] = fa_smem(0, D)
+    for P in (16, 32, 64):
+        smem[f"ssd_scan_f32<{P}>"] = ssd_smem(0, P, 128)
+    for P in (16, 32):
+        smem[f"ssd_scan_bf16<{P}>"] = ssd_smem(1, P, 128)
+    smem["ssd_chunk_products"] = ssd_smem(2, 0, 128)
+    out = {}
+    for src in build.sources():
+        funcs, cur = [], None
+        for line in build.target(src).with_suffix(".log").read_text().splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                cur = {"function": _kernel_name(m[1])}
+                cur["dynamic_smem_bytes"] = smem.get(cur["function"])
+                funcs.append(cur)
+            elif cur is not None:
+                if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line):
+                    cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]))
+                if m := re.search(r"Used (\d+) registers", line):
+                    cur["registers"] = int(m[1])
+                if m := re.search(r"(\d+) bytes smem", line):
+                    cur["static_smem_bytes"] = int(m[1])
+        out[src.stem] = funcs
+    emit("kernel resources", **out)
+
+
 def phase_flash(gen) -> dict:
     row = None
     for B, Hq, Hkv, Sq, Sk, D, dt, causal in FA_CASES:
@@ -374,11 +441,15 @@ def phase_ssd(gen) -> dict:
             # The work the scan needs: C B^T on the causal pairs once per
             # (b, chunk), since all heads share one B and C, in the type of
             # B and C (bf16 x bf16 products are exact in f32); per (b, h,
-            # chunk), M x on the causal pairs, C state and the state update,
-            # every one an f32 x f32 product.  The kernel does more: it
-            # forms C B^T for every head and in f32.
+            # chunk), M x on the causal pairs, C state and the state update.
+            # For bf16 inputs the kernel runs each per-head product as two
+            # bf16 tensor-core passes (an f32 operand split into hi + lo
+            # against an exact bf16 one), so they count twice at the bf16
+            # peak; f32 inputs run them as f32 FMA.
             cbt = B * (S // q) * q * (q + 1) * N
             per_head = B * H * (S // q) * (q * (q + 1) * P + 4 * q * N * P)
+            per_head_work = ((2 * per_head, torch.bfloat16) if dt == torch.bfloat16
+                             else (per_head, torch.float32))
             moved = nbytes(*args) + B * S * H * P * 4  # y is f32
             row = {"max_abs_err": case.get("max_abs_err"),
                    "ms": time_ms(lambda *a: ssd.ssd_scan(*a, chunk=chunk), args),
@@ -387,7 +458,7 @@ def phase_ssd(gen) -> dict:
                                        args, iters=4),
                    "library_ms": None}  # no single PyTorch call computes the scan
             row["bound_ms"], row["bound_by"] = bound(
-                moved, (cbt, args[3].dtype), (per_head, torch.float32))
+                moved, (cbt, args[3].dtype), per_head_work)
             case.update(row)
         emit("kernel ssd_scan", ok="error" not in case, **case)
     if failed:
@@ -483,6 +554,7 @@ def main() -> int:
     gen_ssm = torch.Generator(device="cuda").manual_seed(SEED + 1)  # the SSM phases'
     with torch.inference_mode():
         phase_device()
+        phase_resources()
         fa_row = phase_flash(gen)
         rn_row = phase_rmsnorm(gen)
         ssd_row = phase_ssd(gen_ssm)

@@ -3,7 +3,9 @@
 ``ssd_scan`` launches ``csrc/ssd_scan.cu`` (built by ``build.py`` for
 sm_90a, bound with ctypes) on the current stream.  It is the port of the
 Pallas kernel ``repro/kernels/ssd_scan.py``: each (b, h) walks its chunks in
-order and carries an f32 (N, P) state from chunk to chunk; y is f32.
+order and carries an f32 (N, P) state from chunk to chunk; y is f32.  For
+bf16 inputs a first launch forms C B^T once per (b, chunk) into a workspace
+that the wrapper allocates, and the scan splits P across blocks.
 
 ``ssd_scan_plain`` does the Pallas kernel's per-chunk arithmetic in plain
 PyTorch, in f32, chunk after chunk, batched over (b, h):
@@ -19,7 +21,7 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_STATE = 128
 MAX_CHUNK = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,37 +87,45 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> int:
         raise ValueError(f"state width {N} must be a multiple of 8 in [8, {MAX_STATE}]")
     if min(Bsz, S, H) == 0:
         raise ValueError("empty input")
-    if Bsz > 65535:
-        raise ValueError("B must be at most 65535")
+    if Bsz > 65535 or H > 65535:
+        raise ValueError("B and H must be at most 65535")
     q = chunk_len(S, chunk)
     if q > MAX_CHUNK:
         raise ValueError(f"chunk {q} is longer than {MAX_CHUNK}")
     return q
 
 
-_FN = None
+_FNS = None
 
 
 def _entry():
-    global _FN
-    if _FN is None:
-        fn = build.load("ssd_scan").repro_ssd_scan_fwd
+    """(scan, workspace_bytes): the library's two C functions."""
+    global _FNS
+    if _FNS is None:
+        lib = build.load("ssd_scan")
+        fn = lib.repro_ssd_scan_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        _FN = fn
-    return _FN
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        ws = lib.repro_ssd_scan_workspace_bytes
+        ws.restype = ctypes.c_longlong
+        ws.argtypes = [ctypes.c_int] * 4
+        _FNS = fn, ws
+    return _FNS
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """Launch the CUDA kernel on x's device and current stream."""
     q = _check(x, dt, A, Bm, Cm, chunk)
-    fn = _entry()
+    fn, ws_bytes = _entry()
     Bsz, S, H, P = x.shape
+    dtype = _DTYPES[x.dtype]
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    ws = torch.empty(ws_bytes(dtype, Bsz, S, q), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                y.data_ptr(), _DTYPES[x.dtype], Bsz, S, H, P, Bm.shape[-1], q, stream)
+                y.data_ptr(), ws.data_ptr() or None, dtype, Bsz, S, H, P, Bm.shape[-1], q,
+                stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan.launches += 1

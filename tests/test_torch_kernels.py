@@ -153,6 +153,7 @@ SSD_SHAPES = [
     (2, 256, 3, 64, 32, 64, False),
     (1, 64, 1, 16, 8, 64, False),  # single chunk
     (1, 512, 2, 32, 128, 128, False),  # full state width
+    (1, 256, 2, 128, 64, 128, True),  # Jamba's head dim P=128, two chunks
     (2, 256, 3, 64, 32, 64, True),  # slow decay, four chunks
 ]
 # tests/test_kernels.py's SSD tolerance: f32 sums taken in another order
@@ -239,3 +240,95 @@ def test_ssd_wrapper_refuses_cpu_and_meta_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.ssd_scan(*(a.to("meta") for a in t), chunk=64)
     _assert_no_launch()
+
+
+@pytest.mark.parametrize("P", [16, 32, 64, 128])
+def test_ssd_wrapper_takes_jamba_head_dim(P, monkeypatch):
+    """Past the device check, the wrapper takes every P of HEAD_DIMS,
+    Jamba's 128 included, and refuses the others."""
+    monkeypatch.setattr(ssd.build, "require_hopper", lambda t: None)
+    _, t = _ssd_pairs(ssd_inputs(1, 64, 2, P, 16, False), "bfloat16")
+    assert ssd._check(*t, chunk=32) == 32
+    for bad in (8, 48, 96, 256):
+        _, t = _ssd_pairs(ssd_inputs(1, 64, 2, bad, 16, False), "bfloat16")
+        with pytest.raises(ValueError, match="head dim"):
+            ssd._check(*t, chunk=32)
+
+
+def _bf16_split(v):
+    """v as bf16 hi + lo (hi + lo = v to 2^-18 relative), both widened."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _ssd_split_rehearsal(x, dt, A, Bm, Cm, *, chunk: int, ps: int):
+    """The bf16 kernel's arithmetic (csrc/ssd_scan.cu) in plain torch, on
+    bf16 x, Bm, Cm: G = C B^T once per (b, chunk); each P-slice of ps
+    columns carries its own state; below the diagonal 16-blocks M takes
+    exp(cum_i - cum_r) exp(cum_r - cum_j) dt_j with r the last step of j's
+    block; every per-head product is two passes, its f32 operand split into
+    bf16 hi + lo against an exact bf16 one."""
+    Bsz, S, H, P = x.shape
+    q = ssd.chunk_len(S, chunk)
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    i = torch.arange(q)
+    tri = (i[:, None] >= i[None, :])[None, :, :, None]
+    same = (i[:, None] // 16 == i[None, :] // 16)[None, :, :, None]
+    r = torch.clamp(i | 15, max=q - 1)
+    y = torch.empty((Bsz, S, H, P))
+    for p0 in range(0, P, ps):
+        state = torch.zeros((Bsz, H, Bm.shape[-1], ps))
+        for c in range(S // q):
+            sl = slice(c * q, (c + 1) * q)
+            xc, bc, cc, dtc = xf[:, sl, :, p0:p0 + ps], Bf[:, sl], Cf[:, sl], dt[:, sl]
+            G = torch.einsum("bin,bjn->bij", cc, bc)[..., None]
+            cum = torch.cumsum(dtc * A, dim=1)  # (B, q, H)
+            ev = torch.exp(cum[:, r] - cum) * dtc
+            direct = G * torch.exp(cum[:, :, None] - cum[:, None]) * dtc[:, None]
+            factored = G * torch.exp(cum[:, :, None] - cum[:, r][:, None]) * ev[:, None]
+            M = torch.where(tri, torch.where(same, direct, factored), 0.0)
+            mh, ml = _bf16_split(M)
+            sh, sl_ = _bf16_split(state)
+            y_diag = (torch.einsum("bijh,bjhp->bihp", mh, xc)
+                      + torch.einsum("bijh,bjhp->bihp", ml, xc))
+            y_off = torch.exp(cum)[..., None] * (torch.einsum("bin,bhnp->bihp", cc, sh)
+                                                 + torch.einsum("bin,bhnp->bihp", cc, sl_))
+            y[:, sl, :, p0:p0 + ps] = y_diag + y_off
+            wh, wl = _bf16_split((torch.exp(cum[:, -1:] - cum) * dtc)[..., None] * xc)
+            state = (state * torch.exp(cum[:, -1])[:, :, None, None]
+                     + torch.einsum("bjn,bjhp->bhnp", bc, wh)
+                     + torch.einsum("bjn,bjhp->bhnp", bc, wl))
+    return y
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_split_rehearsal_matches_pallas(shape):
+    """The bf16 kernel's design, rehearsed on the CPU: its hi + lo passes and
+    factored decays stay within the f32 tolerance of the Pallas kernel (in
+    interpret mode) and of the literal recurrence, and within the chip's
+    relative RMS limit (1e-5) of the plain version."""
+    *dims, chunk, slow = shape
+    j, t = _ssd_pairs(ssd_inputs(*dims, slow), "bfloat16")
+    out = _ssd_split_rehearsal(*t, chunk=chunk, ps=min(32, dims[3]))
+    np.testing.assert_allclose(
+        _np(out), _np(jops.ssd_scan(*j, chunk=chunk, interpret=True)), **SSD_TOL)
+    np.testing.assert_allclose(_np(out), _np(_ssd_ref(*j)), **SSD_TOL)
+    plain = ops.ssd_scan(*t, chunk=chunk)
+    assert ((out - plain).norm() / plain.norm()).item() < 1e-5
+
+
+def test_ssd_breakdown_edits_apply():
+    """scripts/ssd_scan_breakdown.py switches the scan's products off by
+    editing csrc/ssd_scan.cu; each edit must name text that occurs once."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "ssd_scan_breakdown", root / "scripts" / "ssd_scan_breakdown.py")
+    breakdown = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(breakdown)
+    src = (root / "src" / "repro_torch" / "kernels" / "csrc" / "ssd_scan.cu").read_text()
+    for name, edits in breakdown.VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1, (name, old)
+            assert new != old
