@@ -15,15 +15,25 @@ width, with random weights from a seeded generator: prefill (through the
 kernels, checked against the reference path) and serve (the engine answers
 four requests; prefill logits are checked against the engine path's
 ``decode_step``).  The models are qwen3_4b (flash attention) and
-mamba2_130m (the SSD scan).  Then a ``kernels`` line and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code is
-not 0; without a CUDA device the script exits 1 before any phase.
+mamba2_130m (the SSD scan).  Then the verifier's main path: verify (the
+port's ``Session`` proves tp-forward at tp 4 for llama3_8b and qwen3_4b at
+full width and depth, host seconds), campaign (every registered injector on
+llama3_8b's tp4 tp-forward pair, each cell held to the JAX reference's
+outcome) and tp_forward (the per-rank TP program the verifier proves, run
+on four gloo ranks sharing the card, llama3_8b at full width with two
+layers, flash attention on every layer of every rank; logits gathered on
+rank 0 and held to the single-device model).  Then a ``kernels`` line and,
+last, ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit
+code is not 0; without a CUDA device the script exits 1 before any phase.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
+import os
+import platform
 import re
 import subprocess
 import sys
@@ -41,7 +51,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.parallel import spmd  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.verify import Plan, Session, run_campaign  # noqa: E402
 
 SEED = 0
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
@@ -81,6 +93,35 @@ SSD_TOL = (1e-3, 1e-5)
 # RMS and 0.38 at most (2.6e-6 relative in f32); the bounds leave about 3x
 # headroom, more on the max over the 32x larger chip batch.
 SSM_LOGIT_BOUNDS = (0.1, 1.5)
+# llama3_8b TP-4 logits (RMS about 1) against the single-device model, both
+# through the kernels, (relative RMS error, max abs error).  TP changes only
+# the order of the row-parallel sums (four bf16 partial sums added by the
+# all_reduce) and the vocab-parallel embedding (exact).  A CPU emulation of
+# the same comparison (scripts/tp_logit_bounds.py: full width, 2 layers,
+# tokens (1, 1024), bf16, reference path, run on the H100 machine's host)
+# read 1.09% relative RMS and 0.066 at most (1.7e-6 in f32); the bounds
+# leave about 3x headroom.
+TP_LOGIT_BOUNDS = (3e-2, 0.2)
+TP_SIZE, TP_LAYERS, TP_TOKENS = 4, 2, (1, 1024)
+# The JAX reference's outcome of every cell of ``python -m repro.verify
+# campaign --arch llama3_8b --tp 4 --scenarios tp-forward`` (written here as
+# data: this script imports nothing of the JAX package).  The tp-forward
+# program has no all_gather or reduce_scatter, so the two injectors that
+# need one find no site.
+CAMPAIGN_REFERENCE = {
+    "": "clean_pass",
+    "drop_all_reduce": "detected",
+    "duplicate_all_reduce": "detected",
+    "precision_drop": "detected",
+    "shifted_slice": "detected",
+    "swap_reshape_dims": "detected",
+    "wrong_all_gather_dim": "skipped",
+    "wrong_collective_axis": "detected",
+    "wrong_collective_op": "detected",
+    "wrong_replica_groups": "detected",
+    "wrong_scatter_dim": "skipped",
+    "wrong_transpose": "detected",
+}
 
 FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal
     (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True),  # qwen3_4b prefill shape
@@ -535,6 +576,112 @@ def phase_serve(cfg, model, params, *, check_len: int = 0,
          launches=engine_launches, prefill_vs_decode=check)
 
 
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it (a virtual machine may
+    hide the model name; family and model number stay), and its logical
+    CPUs."""
+    info: dict = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name', platform.machine())} (family "
+            f"{info.get('cpu family', '?')}, model {info.get('model', '?')}), "
+            f"{os.cpu_count()} logical CPUs")
+
+
+def phase_verify(card: str) -> None:
+    """The port's verifier proves tp-forward at tp 4 at full width and depth
+    (CONFIG, 3 traced block periods stamped to the full depth).  Host seconds
+    on the machine that has the card: the verifier executes nothing on it."""
+    cpu, failed = host_cpu(), []
+    # the process's first make_fx pays for imports and dispatcher caches:
+    # time it apart, on a small pair, so each arch's trace_s is steady state
+    t0 = time.perf_counter()
+    with Session() as session:
+        session.verify("llama3_8b", Plan(tp=2, smoke=True))
+    emit("verify warm-up", arch="llama3_8b SMOKE", tp=2, seconds=time.perf_counter() - t0,
+         host_cpu=cpu, card=card)
+    for arch in ("llama3_8b", "qwen3_4b"):
+        with Session() as session:
+            rep = session.verify(arch, Plan(tp=TP_SIZE))
+        emit("verify", arch=arch, tp=TP_SIZE, verified=rep.verified, stamped=rep.stamped,
+             base_nodes=rep.num_base_nodes, dist_nodes=rep.num_dist_nodes,
+             facts=rep.num_facts, trace_s=rep.timings.trace_s,
+             stamp_s=rep.timings.stamp_s, rules_s=rep.timings.rules_s,
+             total_s=rep.elapsed_s, host_cpu=cpu, card=card,
+             bug_sites=[{"src": b.src, "category": b.category} for b in rep.bug_sites[:3]])
+        if not (rep.verified and rep.stamped):
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"tp-forward at tp {TP_SIZE} not verified from a stamped "
+                             f"trace for {failed}")
+
+
+def phase_campaign() -> None:
+    """Every registered injector on llama3_8b's tp4 tp-forward pair; each
+    cell's outcome must be the JAX reference's."""
+    t0 = time.perf_counter()
+    rep = run_campaign(["llama3_8b"], tp=TP_SIZE, scenarios=["tp-forward"])
+    seconds = time.perf_counter() - t0
+    got = {c.injector: c.outcome for c in rep.cells}
+    localized = sum(c.localized for c in rep.cells if c.outcome == "detected")
+    emit("campaign", arch="llama3_8b", tp=TP_SIZE, scenario="tp-forward",
+         detected=rep.detected, missed=rep.missed, false_positives=rep.false_positives,
+         localized=localized, cells=got, seconds=seconds)
+    if got != CAMPAIGN_REFERENCE or not rep.ok or localized != rep.detected:
+        raise AssertionError(f"campaign cells differ from the reference: {got}")
+
+
+def tp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
+    """One rank of the tp_forward phase (runs in a spawned process): a
+    warm-up forward, then one forward with the kernels' counts read around
+    it; rank 0 gathers the vocab shards of the logits (gloo, on the host)."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spmd.tp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda")
+    reset_counts()
+    out = spmd.tp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda")
+    launches = counts()
+    shards = [torch.empty_like(out["logits"]) for _ in range(world)] if rank == 0 else None
+    dist.gather(out["logits"], shards, dst=0)
+    logits = torch.cat(shards, dim=-1) if rank == 0 else None
+    return {"ms": out["ms"], "launches": launches, "logits": logits}
+
+
+def phase_tp_forward(gen) -> list:
+    """The per-rank TP program the verifier proves, on four gloo ranks that
+    share the card (NCCL refuses two ranks on one device; gloo stages the
+    all_reduces through the host), llama3_8b at full width with TP_LAYERS
+    layers, bf16, through the kernels.  Each rank draws the single-device
+    weights from one seed and keeps its shard (``param_specs``)."""
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=TP_LAYERS)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
+    tokens = torch.randint(0, cfg.vocab, TP_TOKENS, generator=gen, device="cuda").cpu()
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        ref = model.forward(params, {"tokens": tokens.cuda()}).float()
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spmd.run(tp_rank, TP_SIZE, (cfg, seed, tokens), timeout=600)
+    seconds = time.perf_counter() - t0
+    launches = [r["launches"] for r in ranks]
+    check = logit_check("tp_forward TP-4 vs single device", ranks[0]["logits"].cuda(), ref,
+                        TP_LOGIT_BOUNDS)
+    want = {"flash_attention": TP_LAYERS, "rmsnorm": 0, "ssd_scan": 0}
+    emit("tp_forward", arch=cfg.name, tp=TP_SIZE, layers=TP_LAYERS, tokens=list(TP_TOKENS),
+         dtype=cfg.dtype, backend="gloo", flash_shape_per_rank=[
+             TP_TOKENS[0], cfg.heads // TP_SIZE, cfg.kv_heads // TP_SIZE, TP_TOKENS[1],
+             TP_TOKENS[1], cfg.hd], launches_per_rank=launches,
+         forward_ms_per_rank=[r["ms"] for r in ranks], seconds=seconds, **check)
+    if any(n != want for n in launches):
+        raise AssertionError(f"each rank's forward launched {launches}, expected {want}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -552,6 +699,9 @@ def main() -> int:
         return 1
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gen_ssm = torch.Generator(device="cuda").manual_seed(SEED + 1)  # the SSM phases'
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     with torch.inference_mode():
         phase_device()
         phase_resources()
@@ -571,6 +721,13 @@ def main() -> int:
         ssm_launches = phase_prefill(cfg, model, params, gen_ssm, (4, 4096),
                                      SSM_LOGIT_BOUNDS)
         phase_serve(cfg, model, params, check_len=256, bounds=SSM_LOGIT_BOUNDS)
+        del model, params
+        torch.cuda.empty_cache()
+    phase_verify(card)
+    phase_campaign()
+    tp_launches = phase_tp_forward(gen)
+    paths = {"qwen3_4b prefill": launches, "mamba2_130m prefill": ssm_launches,
+             "tp_forward, each rank": tp_launches}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -587,7 +744,11 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
+    for row in kernels:  # every main path's count, read around that path
+        row["launches_by_path"] = {path: [c[row["name"]] for c in n] if isinstance(n, list)
+                                   else n[row["name"]] for path, n in paths.items()}
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("launches_by_path",)}
+                                  for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

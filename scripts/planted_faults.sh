@@ -1,10 +1,11 @@
 #!/usr/bin/env bash
 # Run chip_smoke.py in throwaway copies of the tree, each with one fault
-# planted in a kernel source, and print each run's exit code and the kernel
-# lines of the faulty kernel.  A sound check fails every copy.  Needs one
-# H100, like chip_smoke.py.
+# planted in a kernel source or in the TP program, and print each run's exit
+# code and the lines of the phase that should catch it.  A sound check fails
+# every copy.  Needs one H100, like chip_smoke.py.
 #
-#   bash scripts/planted_faults.sh [OUT_DIR]    # full logs: OUT_DIR/fault_*.txt
+#   bash scripts/planted_faults.sh [OUT_DIR [FAULT ...]]
+#                           # full logs: OUT_DIR/fault_*.txt; default: every fault
 #
 # Faults in csrc/flash_attention.cu (K1):
 #   fa_diagonal_unmasked  the causal mask is not applied (only keys past Sk
@@ -18,44 +19,67 @@
 #   ssd_state_not_decayed the carried state is not decayed by exp(cum_Q)
 #   ssd_slice_offset      every P-slice block reads and writes the first
 #                         slice's columns
+# Faults in the TP program (caught by the verify phase, and the tp_forward
+# phase, run on its own after chip_smoke.py, fails its logit check):
+#   tp_attn_psum_dropped  the psum after attention's output projection is
+#                         removed (models/attention.py)
+#   tp_vp_embed_shifted   vp_embed's offset is (rank + 1) * V_loc
+#                         (parallel/collectives.py)
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
+shift $(( $# > 0 ? 1 : 0 ))
+faults=${*:-fa_diagonal_unmasked fa_last_kv_stale ssd_carry_dropped ssd_state_not_decayed \
+ssd_slice_offset tp_attn_psum_dropped tp_vp_embed_shifted}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
-csrc=src/repro_torch/kernels/csrc
-for name in fa_diagonal_unmasked fa_last_kv_stale ssd_carry_dropped ssd_state_not_decayed \
-            ssd_slice_offset; do
+csrc=kernels/csrc
+for name in $faults; do
   case $name in
     fa_diagonal_unmasked)
-      file=flash_attention.cu phase=flash_attention
+      file=$csrc/flash_attention.cu phase=flash_attention
       old='if (kpos >= Sk || (causal && qpos[(i >> 1) & 1] < kpos)) s[i] = kNeg;'
       new='if (kpos >= Sk) s[i] = kNeg;' ;;
     fa_last_kv_stale)
-      file=flash_attention.cu phase=flash_attention
+      file=$csrc/flash_attention.cu phase=flash_attention
       old='j * T::BK, bkv);
           mbar_wait(v_empty(s), parity);'
       new='(j - (j > 0 && j == n_kv - 1)) * T::BK, bkv);
           mbar_wait(v_empty(s), parity);' ;;
     ssd_carry_dropped)
-      file=ssd_scan.cu phase=ssd_scan
+      file=$csrc/ssd_scan.cu phase=ssd_scan
       old='const float e = expf(cum[i]);'
       new='const float e = c == 0 ? expf(cum[i]) : 0.f;' ;;
     ssd_state_not_decayed)
-      file=ssd_scan.cu phase=ssd_scan
+      file=$csrc/ssd_scan.cu phase=ssd_scan
       old='st[nt][e] *= decay;'
       new='st[nt][e] *= 1.f;' ;;
     ssd_slice_offset)
-      file=ssd_scan.cu phase=ssd_scan
+      file=$csrc/ssd_scan.cu phase=ssd_scan
       old='const int p0 = blockIdx.x * PS,'
       new='const int p0 = 0 * blockIdx.x * PS,' ;;
+    tp_attn_psum_dropped)
+      file=models/attention.py phase=verify
+      old='y = linear(p["wo"], out)
+    return ctx.sp_enter(y)
+
+'
+      new='y = linear(p["wo"], out)
+    return y
+
+' ;;
+    tp_vp_embed_shifted)
+      file=parallel/collectives.py phase=verify
+      old='off = rank * V_loc'
+      new='off = (rank + 1) * V_loc' ;;
+    *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name
   mkdir -p "$dir"
   cp -r "$root/chip_smoke.py" "$root/src" "$dir/"
   rm -rf "$dir/src/repro_torch/kernels/build"
-  cu=$dir/$csrc/$file
+  cu=$dir/src/repro_torch/$file
   OLD=$old NEW=$new python3 - "$cu" <<'PY'
 import os, sys
 path = sys.argv[1]
@@ -65,13 +89,22 @@ if text.count(old) != 1:
     sys.exit(f"{path}: the text to replace occurs {text.count(old)} times")
 open(path, "w").write(text.replace(old, new))
 PY
-  if cmp -s "$cu" "$root/$csrc/$file"; then
+  if cmp -s "$cu" "$root/src/repro_torch/$file"; then
     echo "$name: the edit did not apply"
     exit 2
   fi
   (cd "$dir" && timeout 900 python3 chip_smoke.py) > "$out/fault_$name.txt" 2>&1
   echo "$name: chip_smoke.py exit $?"
-  diff "$root/$csrc/$file" "$cu" | grep '^>'
-  grep "\"kernel $phase\"" "$out/fault_$name.txt" | cut -c 1-330
+  diff "$root/src/repro_torch/$file" "$cu" | grep '^>'
+  grep -E "\"(kernel )?$phase\"" "$out/fault_$name.txt" | cut -c 1-600
   grep -m 1 -E "AssertionError|Error:" "$out/fault_$name.txt" | cut -c 1-400
+  if [ "$phase" = verify ]; then  # the tp_forward phase on its own
+    (cd "$dir" && timeout 600 python3 -c '
+import sys, torch, chip_smoke as cs
+cs.build.build_all()
+sys.exit(cs.phase_tp_forward(torch.Generator(device="cuda").manual_seed(cs.SEED)) is None)
+') > "$out/fault_${name}_tp_forward.txt" 2>&1
+    echo "$name: tp_forward phase alone exit $?"
+    grep -m 1 -E "AssertionError|Error:" "$out/fault_${name}_tp_forward.txt" | cut -c 1-400
+  fi
 done

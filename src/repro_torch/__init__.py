@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the ``repro`` model zoo and serving path.
+"""PyTorch/CUDA port of the ``repro`` model zoo, serving path and verifier
+(``repro_torch.verify``: the tp-forward scenario so far).
 
 Plain functions on tensors over dict parameters, in the parameter layout of
 the JAX package (``(d_in, d_out)`` weights applied as ``x @ w``, blocks

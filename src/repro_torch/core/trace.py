@@ -1,0 +1,824 @@
+"""make_fx -> TensorIR extraction (the paper's "IR graph generation" stage).
+
+``make_fx(tracing_mode="fake")`` gives the ATen-level program of a torch
+function over fake tensors: no storage is allocated, so full-width models
+trace on a laptop.  This module lowers that graph into the op vocabulary of
+:mod:`repro_torch.core.ir` (the vocabulary the JAX package's tracer emits)
+so the same rules verify both:
+
+* ATen ops with a 1:1 counterpart are renamed (``mm``/``bmm`` -> ``dot``,
+  ``view``/``unsqueeze`` -> ``reshape``, ``permute`` -> ``transpose``,
+  ``expand`` -> ``broadcast``, ``_to_copy`` -> ``convert``, ``cat`` ->
+  ``concat``, ``index`` -> ``gather``, ...);
+* composite ops are decomposed the way ``jax.numpy`` lowers them
+  (``mean`` -> ``reduce_sum`` + ``div``, ``silu`` -> ``logistic`` + ``mul``,
+  ``clamp`` -> ``max`` + ``min``, ``_softmax``, ``addmm``, ``triu``/``tril``),
+  with jnp's explicit rank-promoting broadcasts and ``where`` as
+  ``select(pred, on_false, on_true)``;
+* Python scalars become hash-consed ``const`` leaves; scalar int
+  arithmetic on constants folds at trace time;
+* the functional collectives become ``all_reduce``/``all_gather``/
+  ``reduce_scatter`` nodes over the traced axis (``wait_tensor`` is
+  dropped), and the context's rank input is emitted as ``axis_index``;
+* every node carries ``src`` (``file.py:line`` of the innermost frame
+  outside torch and this module, captured by a ``TorchFunctionMode`` while
+  tracing), its ``named_scope`` path (:mod:`repro_torch.scope`) and the
+  layer tag derived from it.
+
+:func:`trace_sharded` traces the per-rank program of a tensor-parallel
+function under a fake process group of the axis size: the counterpart of
+tracing the body of a ``shard_map``.  Any op outside the table is emitted
+as an opaque node named after it (sound: it verifies only against a
+congruent opaque node).
+"""
+from __future__ import annotations
+
+import hashlib
+import operator
+import os
+import re
+import sys
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+import torch.fx.traceback as fx_traceback
+from torch.overrides import TorchFunctionMode
+
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+from .ir import Graph
+
+_LAYER_RE = re.compile(r"(?:^|/)layer[_]?(\d+)")
+_SUB_RE = re.compile(r"(?:^|/)sub(\d+)")
+
+# tag stride between consecutive ``layer<i>`` scopes: room for per-layer
+# sub-scopes (decode blocks) without colliding with the next layer's tag
+LAYER_TAG_STRIDE = 4096
+
+
+def default_layer_tag(scope: str) -> Optional[int]:
+    m = _LAYER_RE.search(scope)
+    if m is None:
+        return None
+    tag = int(m.group(1)) * LAYER_TAG_STRIDE
+    ms = _SUB_RE.search(scope)
+    if ms is not None:  # block-level scope with per-layer sub-scopes (decode)
+        tag += int(ms.group(1)) + 1
+    return tag
+
+
+@dataclass(frozen=True)
+class ShapeDtype:
+    """A tensor's shape and dtype, the counterpart of jax's
+    ``ShapeDtypeStruct``: what the tracer needs of an input."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+DTYPE_NAMES = {
+    torch.float64: "float64", torch.float32: "float32", torch.bfloat16: "bfloat16",
+    torch.float16: "float16", torch.int64: "int64", torch.int32: "int32",
+    torch.int16: "int16", torch.int8: "int8", torch.uint8: "uint8", torch.bool: "bool",
+}
+_NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32,
+              torch.bfloat16: np.float32, torch.float16: np.float16,
+              torch.int64: np.int64, torch.int32: np.int32, torch.int16: np.int16,
+              torch.int8: np.int8, torch.uint8: np.uint8, torch.bool: np.bool_}
+
+
+_DTYPES_BY_NAME = {v: k for k, v in DTYPE_NAMES.items()}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return DTYPE_NAMES.get(dtype) or str(dtype).removeprefix("torch.")
+
+
+def _const_hash(arr: np.ndarray) -> str:
+    return hashlib.sha1(
+        arr.tobytes() + str(arr.shape).encode() + str(arr.dtype).encode()
+    ).hexdigest()[:16]
+
+
+# --------------------------------------------------------------------------
+# source locations: the innermost frame outside torch, the standard library
+# and the tracing plumbing
+
+_TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
+_STDLIB_DIR = os.path.dirname(os.path.abspath(os.__file__))
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PLUMBING = {os.path.abspath(__file__), os.path.join(_PKG_DIR, "tree.py"),
+             os.path.join(_PKG_DIR, "scope.py")}
+
+
+def _user_src(frame) -> str:
+    while frame is not None:
+        f = frame.f_code.co_filename
+        if not (f.startswith((_TORCH_DIR, _STDLIB_DIR, "<")) or f in _PLUMBING):
+            return f"{f.rsplit('/', 1)[-1]}:{frame.f_lineno}"
+        frame = frame.f_back
+    return ""
+
+
+class _SourceMode(TorchFunctionMode):
+    """Puts the caller's ``file.py:line`` on every fx node a torch call
+    creates (as the node's ``stack_trace``, which fx copies under
+    ``preserve_node_meta()``), and keeps a two-operand ``torch.einsum`` one
+    node: ATen would lower it to permutes, views and a ``bmm`` over merged
+    batch dims, where ``jnp.einsum`` gives one ``dot_general`` (a sharded
+    head dim merged with the batch dim is no split/merge layout)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        fx_traceback.set_stack_trace([_user_src(sys._getframe(1))])
+        if func is torch.einsum and not kwargs:
+            out = _einsum_as_dot_general(*args)
+            if out is not None:
+                return out
+        return func(*args, **(kwargs or {}))
+
+
+@torch.library.custom_op("repro_torch::dot_general", mutates_args=())
+def _dot_general(lhs: torch.Tensor, rhs: torch.Tensor, lhs_contract: list[int],
+                 rhs_contract: list[int], lhs_batch: list[int],
+                 rhs_batch: list[int]) -> torch.Tensor:
+    """``lax.dot_general``: output dims are the batch dims, then the free
+    dims of ``lhs``, then those of ``rhs``."""
+    letters = iter("abcdefghijklmnopqrstuvwxyz")
+    lhs_l = [next(letters) for _ in range(lhs.ndim)]
+    rhs_l = [next(letters) for _ in range(rhs.ndim)]
+    for i, j in zip(lhs_contract + lhs_batch, rhs_contract + rhs_batch):
+        rhs_l[j] = lhs_l[i]
+    out = ([lhs_l[i] for i in lhs_batch]
+           + [c for i, c in enumerate(lhs_l) if i not in lhs_contract + lhs_batch]
+           + [c for j, c in enumerate(rhs_l) if j not in rhs_contract + rhs_batch])
+    eq = f"{''.join(lhs_l)},{''.join(rhs_l)}->{''.join(out)}"
+    return torch.einsum(eq, lhs, rhs)
+
+
+@_dot_general.register_fake
+def _dot_general_fake(lhs, rhs, lhs_contract, rhs_contract, lhs_batch, rhs_batch):
+    shape = ([lhs.shape[i] for i in lhs_batch]
+             + [s for i, s in enumerate(lhs.shape) if i not in lhs_contract + lhs_batch]
+             + [s for j, s in enumerate(rhs.shape) if j not in rhs_contract + rhs_batch])
+    return lhs.new_empty(shape, dtype=torch.promote_types(lhs.dtype, rhs.dtype))
+
+
+def _einsum_as_dot_general(equation, *operands):
+    """``torch.einsum`` over two operands without ellipsis or repeated or
+    summed-out letters, as ``dot_general`` + ``permute``; None otherwise."""
+    if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
+        operands = tuple(operands[0])
+    if len(operands) != 2 or "..." in equation or "->" not in equation:
+        return None
+    ins, out = equation.replace(" ", "").split("->")
+    lhs, rhs = ins.split(",")
+    if any(len(set(t)) != len(t) for t in (lhs, rhs, out)):
+        return None
+    if any(c not in lhs and c not in rhs for c in out) or any(
+            c not in out and c not in (lhs if c in rhs else rhs) for c in lhs + rhs):
+        return None  # a letter summed out of one operand alone
+    batch = [c for c in lhs if c in rhs and c in out]
+    contract = [c for c in lhs if c in rhs and c not in out]
+    res = _dot_general(operands[0], operands[1], [lhs.index(c) for c in contract],
+                       [rhs.index(c) for c in contract], [lhs.index(c) for c in batch],
+                       [rhs.index(c) for c in batch])
+    order = batch + [c for c in lhs if c not in rhs] + [c for c in rhs if c not in lhs]
+    perm = [order.index(c) for c in out]
+    return res if perm == sorted(perm) else res.permute(perm)
+
+
+@contextmanager
+def fake_process_group(size: int):
+    """A default process group of ``size`` fake ranks (this process is rank
+    0) for the duration of a trace; torn down on exit, so no default group
+    is left behind."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a default process group already exists; trace the "
+                           "per-rank program in a process without one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# ATen -> IR
+
+_A = torch.ops.aten
+_UNARY = {
+    _A.neg: "neg", _A.exp: "exp", _A.log: "log", _A.log1p: "log1p", _A.tanh: "tanh",
+    _A.rsqrt: "rsqrt", _A.sqrt: "sqrt", _A.sin: "sin", _A.cos: "cos", _A.abs: "abs",
+    _A.sign: "sign", _A.floor: "floor", _A.ceil: "ceil", _A.round: "round",
+    _A.erf: "erf", _A.sigmoid: "logistic", _A.exp2: "exp2",
+    _A.logical_not: "not", _A.bitwise_not: "not", _A.isfinite: "is_finite",
+}
+_BINARY = {
+    _A.add: "add", _A.sub: "sub", _A.mul: "mul", _A.div: "div",
+    _A.maximum: "max", _A.minimum: "min", _A.pow: "pow", _A.remainder: "rem",
+    _A.fmod: "rem", _A.atan2: "atan2",
+}
+_COMPARE = {_A.lt: "lt", _A.le: "le", _A.gt: "gt", _A.ge: "ge", _A.eq: "eq",
+            _A.ne: "ne"}
+_LOGICAL = {_A.bitwise_and: "and", _A.logical_and: "and", _A.bitwise_or: "or",
+            _A.logical_or: "or", _A.bitwise_xor: "xor", _A.logical_xor: "xor"}
+_REDUCE = {_A.sum: "reduce_sum", _A.amax: "reduce_max", _A.amin: "reduce_min",
+           _A.prod: "reduce_prod", _A.any: "reduce_or", _A.all: "reduce_and"}
+_IDENTITY = {_A.clone, _A.contiguous, _A.alias, _A.detach, _A.lift_fresh,
+             _A.lift_fresh_copy}
+_RESHAPE = {_A.view, _A._unsafe_view, _A.reshape, _A.unsqueeze, _A.squeeze,
+            _A.flatten, _A.unflatten}
+_FILL = {_A.full: None, _A.zeros: 0, _A.ones: 1, _A.new_full: None, _A.new_zeros: 0,
+         _A.new_ones: 1, _A.full_like: None, _A.zeros_like: 0, _A.ones_like: 1,
+         _A.scalar_tensor: None}
+_REDUCE_OPS = {"sum": "add", "max": "max", "min": "min", "product": "mul"}
+_FOLD = {
+    "add": operator.add, "sub": operator.sub, "mul": operator.mul,
+    "max": np.maximum, "min": np.minimum, "neg": np.negative,
+    "lt": np.less, "le": np.less_equal, "gt": np.greater, "ge": np.greater_equal,
+    "eq": np.equal, "ne": np.not_equal, "and": np.logical_and, "or": np.logical_or,
+}
+
+
+def _c10d_ops() -> dict:
+    """The functional collectives' op packets -> their names."""
+    ns = torch.ops._c10d_functional
+    return {getattr(ns, n): n for n in ("all_reduce", "all_gather_into_tensor",
+                                        "reduce_scatter_tensor", "all_to_all_single",
+                                        "wait_tensor")}
+
+
+class Ref(int):
+    """A lowered fx value (an IR node id), told apart from a Python int
+    literal among an op's arguments."""
+
+
+class Tracer:
+    """Lowers one fx graph into a :class:`Graph`.  Constants are hash-consed
+    across the whole trace: unrolled layers re-create identical literals,
+    and dedup keeps repeated layers referencing period-invariant leaves
+    (required by layer stamping; sound because the e-graph merges
+    equal-payload consts into one e-class anyway)."""
+
+    def __init__(self, layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
+                 axis: str = "model"):
+        self.g = Graph()
+        self.layer_tag_fn = layer_tag_fn
+        self.axis = axis
+        self._scalar_val: dict[int, Any] = {}
+        self._const_cache: dict[tuple, int] = {}
+        self._ctx = ("", "", None)  # src, scope, layer of the node being lowered
+        self._c10d = _c10d_ops()
+
+    # -- leaves ---------------------------------------------------------------
+    def add_const(self, arr: np.ndarray, dtype: str) -> int:
+        arr = np.asarray(arr)
+        h = _const_hash(arr)
+        key = (h, tuple(arr.shape), dtype)
+        hit = self._const_cache.get(key)
+        if hit is not None:
+            return hit
+        params: dict[str, Any] = {"value_hash": h}
+        if not np.any(arr):
+            # all-zero payload: rules about additive identities key on this
+            params["zero"] = True
+        if arr.shape == () and arr.dtype.kind in "ib":
+            # scalar int/bool payload carried on the node: rank-indexed
+            # slicing rules match the chunk constant in ``axis_index * chunk``
+            params["value"] = int(arr)
+        nid = self.g.add("const", (), arr.shape, dtype, params)
+        if arr.shape == () and arr.dtype.kind in "ib":
+            self._scalar_val[nid] = arr
+        self._const_cache[key] = nid
+        return nid
+
+    def scalar(self, value, dtype: torch.dtype) -> int:
+        return self.add_const(np.asarray(value, dtype=_NP_DTYPES.get(dtype, np.float64)),
+                              dtype_name(dtype))
+
+    # -- emission -------------------------------------------------------------
+    def emit(self, op: str, inputs, shape, dtype, params: Optional[dict] = None) -> int:
+        dt = dtype if isinstance(dtype, str) else dtype_name(dtype)
+        fn = _FOLD.get(op)
+        if (fn is not None and tuple(shape) == () and dt in ("int64", "int32", "bool")
+                and inputs and all(i in self._scalar_val for i in inputs)):
+            val = np.asarray(fn(*[self._scalar_val[i] for i in inputs]))
+            return self.add_const(val.astype(np.bool_ if dt == "bool" else dt), dt)
+        src, scope, layer = self._ctx
+        return self.g.add(op, inputs, tuple(shape), dt, params, src=src, layer=layer,
+                          scope=scope)
+
+    def operand(self, a, dtype: torch.dtype) -> int:
+        """IR id of an fx argument: a lowered node, or a Python scalar as a
+        constant of ``dtype``."""
+        if isinstance(a, Ref):
+            return int(a)
+        if isinstance(a, (bool, int, float, np.number)):
+            return self.scalar(a, dtype)
+        raise TypeError(f"unsupported operand {a!r}")
+
+    def convert(self, nid: int, dtype: torch.dtype) -> int:
+        n = self.g[nid]
+        name = dtype_name(dtype)
+        if n.dtype == name:
+            return nid
+        if n.op == "const" and n.shape == () and nid in self._scalar_val:
+            return self.add_const(self._scalar_val[nid].astype(_NP_DTYPES[dtype]), name)
+        return self.emit("convert", [nid], n.shape, name, {"new_dtype": name})
+
+    def promote_rank(self, nid: int, rank: int) -> int:
+        """jnp's implicit broadcasting: a lower-rank operand (not a scalar)
+        gets leading unit dims through an explicit ``broadcast``."""
+        n = self.g[nid]
+        k = rank - len(n.shape)
+        if k <= 0 or not n.shape:
+            return nid
+        shape = (1,) * k + n.shape
+        return self.emit("broadcast", [nid], shape, n.dtype,
+                         {"shape": shape, "broadcast_dimensions": tuple(range(k, rank))})
+
+    def broadcast_to(self, nid: int, shape: tuple) -> int:
+        """``jnp.broadcast_to``: one ``broadcast_in_dim`` to the full shape."""
+        n = self.g[nid]
+        if n.shape == tuple(shape):
+            return nid
+        k = len(shape) - len(n.shape)
+        return self.emit("broadcast", [nid], shape, n.dtype,
+                         {"shape": tuple(shape),
+                          "broadcast_dimensions": tuple(range(k, len(shape)))})
+
+    def reshape(self, nid: int, shape: tuple) -> int:
+        n = self.g[nid]
+        if n.shape == tuple(shape):
+            return nid
+        return self.emit("reshape", [nid], shape, n.dtype, {"new_sizes": tuple(shape)})
+
+    def slice(self, nid: int, dim: int, start: int, stop: int, step: int = 1) -> int:
+        n = self.g[nid]
+        if start == 0 and stop == n.shape[dim] and step == 1:
+            return nid
+        st = [0] * len(n.shape)
+        lim = list(n.shape)
+        st[dim], lim[dim] = start, stop
+        shape = list(n.shape)
+        shape[dim] = max(0, -(-(stop - start) // step))
+        strides = None
+        if step != 1:
+            strides = [1] * len(n.shape)
+            strides[dim] = step
+            strides = tuple(strides)
+        return self.emit("slice", [nid], shape, n.dtype,
+                         {"start_indices": tuple(st), "limit_indices": tuple(lim),
+                          "strides": strides})
+
+    def reduce(self, op: str, nid: int, dims, keepdim: bool, out_dtype) -> int:
+        n = self.g[nid]
+        r = len(n.shape)
+        axes = tuple(sorted(d % r for d in dims)) if dims else tuple(range(r))
+        shape = tuple(s for i, s in enumerate(n.shape) if i not in axes)
+        out = self.emit(op, [nid], shape, out_dtype, {"axes": axes})
+        if keepdim:
+            kept = tuple(i for i in range(r) if i not in axes)
+            full = tuple(1 if i in axes else s for i, s in enumerate(n.shape))
+            out = self.emit("broadcast", [out], full, self.g[out].dtype,
+                            {"shape": full, "broadcast_dimensions": kept})
+        return out
+
+    # -- one fx node ----------------------------------------------------------
+    def lower(self, node: torch.fx.Node, env: dict):
+        tgt = node.target
+        val = node.meta.get("val")
+        self._ctx = self._node_ctx(node)
+
+        def arg(a):
+            if isinstance(a, torch.fx.Node):
+                v = env[a]
+                return [Ref(i) for i in v] if isinstance(v, list) else Ref(v)
+            if isinstance(a, (list, tuple)):
+                return type(a)(arg(x) for x in a)
+            return a
+
+        args = [arg(a) for a in node.args]
+        kwargs = {k: arg(v) for k, v in node.kwargs.items()}
+        if tgt is operator.getitem:
+            return args[0][args[1]]
+        packet = getattr(tgt, "overloadpacket", None)
+        if packet is not None and packet.__name__.endswith("_") \
+                and not packet.__name__.startswith("_"):
+            # an in-place op: fx maps later uses of the mutated tensor to this
+            # node, so it lowers as its functional form
+            packet = getattr(_A, packet.__name__[:-1], packet)
+        shape = tuple(val.shape) if isinstance(val, torch.Tensor) else ()
+        dtype = val.dtype if isinstance(val, torch.Tensor) else None
+        if packet in self._c10d:
+            return self._collective(self._c10d[packet], args, shape, dtype)
+        if packet in _IDENTITY:
+            return args[0]
+        if packet in _RESHAPE:
+            return self.reshape(args[0], shape)
+        if packet in _UNARY:
+            return self.emit(_UNARY[packet], [self.convert(args[0], dtype)], shape, dtype)
+        if packet is _A.reciprocal:
+            return self.emit("div", [self.scalar(1, dtype), args[0]], shape, dtype)
+        if packet is _A.rsub:  # rsub(x, c) = c - x
+            a = self.operand(args[0], dtype)
+            b = self.operand(args[1], dtype)
+            return self.emit("sub", [self.promote_rank(b, len(shape)),
+                                     self.promote_rank(a, len(shape))], shape, dtype)
+        if packet in _BINARY:
+            return self._binary(_BINARY[packet], node, args, kwargs, shape, dtype)
+        if packet in _COMPARE or packet in _LOGICAL:
+            op = _COMPARE.get(packet) or _LOGICAL[packet]
+            ins = args[:2]
+            tensors = [self.g[i].dtype for i in ins if isinstance(i, Ref)]
+            common = _promote([_DTYPES_BY_NAME[t] for t in tensors])
+            ids = [self.promote_rank(self.convert(self.operand(a, common), common),
+                                     len(shape)) for a in ins]
+            return self.emit(op, ids, shape, dtype)
+        if packet is _A.where:
+            c, a, b = (self.operand(x, dtype) for x in args[:3])
+            c = self.broadcast_to(c, shape)
+            a = self.broadcast_to(self.convert(a, dtype), shape)
+            b = self.broadcast_to(self.convert(b, dtype), shape)
+            return self.emit("select", [c, b, a], shape, dtype)
+        if packet is _A.silu:
+            x = args[0]
+            lg = self.emit("logistic", [x], shape, dtype)
+            return self.emit("mul", [x, lg], shape, dtype)
+        if packet is _A.relu:
+            return self.emit("max", [args[0], self.scalar(0, dtype)], shape, dtype)
+        if packet is _A.clamp:  # jnp.clip: max(lo, x), then min(hi, .)
+            x = args[0]
+            lo = args[1] if len(args) > 1 else kwargs.get("min")
+            hi = args[2] if len(args) > 2 else kwargs.get("max")
+            if lo is not None:
+                x = self.emit("max", [self.operand(lo, dtype), x], shape, dtype)
+            if hi is not None:
+                x = self.emit("min", [self.operand(hi, dtype), x], shape, dtype)
+            return x
+        if packet in (_A.clamp_min, _A.clamp_max):  # jnp.maximum / jnp.minimum
+            return self.emit("max" if packet is _A.clamp_min else "min",
+                             [args[0], self.operand(args[1], dtype)], shape, dtype)
+        if packet is _A._to_copy:
+            return self.convert(args[0], kwargs.get("dtype") or dtype)
+        if packet in (_A.permute, _A.transpose, _A.t, _A.numpy_T):
+            r = len(self.g[args[0]].shape)
+            if packet is _A.permute:
+                perm = tuple(d % r for d in args[1])
+            else:
+                a, b = (args[1] % r, args[2] % r) if packet is _A.transpose else (0, 1)
+                perm = list(range(r))
+                perm[a], perm[b] = perm[b], perm[a]
+                perm = tuple(perm)
+            if perm == tuple(range(r)):
+                return args[0]
+            return self.emit("transpose", [args[0]], shape, dtype, {"permutation": perm})
+        if packet is _A.expand:
+            return self.broadcast_to(args[0], shape)
+        if packet is _A.slice:
+            x = self.g[args[0]]
+            dim = (args[1] if len(args) > 1 else 0) % len(x.shape)
+            n = x.shape[dim]
+            start = args[2] if len(args) > 2 and args[2] is not None else 0
+            stop = args[3] if len(args) > 3 and args[3] is not None else n
+            step = args[4] if len(args) > 4 else 1
+            start, stop = _norm(start, n), _norm(stop, n)
+            return self.slice(args[0], dim, start, max(start, stop), step)
+        if packet is _A.narrow:
+            x = self.g[args[0]]
+            dim = args[1] % len(x.shape)
+            start = _norm(args[2], x.shape[dim])
+            return self.slice(args[0], dim, start, start + args[3])
+        if packet is _A.select:
+            x = self.g[args[0]]
+            dim = args[1] % len(x.shape)
+            i = args[2] % x.shape[dim]
+            return self.reshape(self.slice(args[0], dim, i, i + 1), shape)
+        if packet in (_A.split, _A.split_with_sizes, _A.chunk, _A.unbind):
+            return self._split(packet, args, node)
+        if packet is _A.cat:
+            ts = [t for t in args[0] if self.g[t].size or len(args[0]) == 1]
+            if len(ts) == 1:
+                return ts[0]
+            dim = (args[1] if len(args) > 1 else 0) % len(shape)
+            return self.emit("concat", [self.convert(t, dtype) for t in ts], shape, dtype,
+                             {"dimension": dim})
+        if packet is getattr(torch.ops.repro_torch, "dot_general", None):
+            lc, rc, lb, rb = (tuple(x) for x in args[2:6])
+            return self.emit("dot", [self.convert(args[0], dtype),
+                                     self.convert(args[1], dtype)], shape, dtype,
+                             {"dimension_numbers": ((lc, rc), (lb, rb))})
+        if packet is _A.mm:
+            return self.emit("dot", args[:2], shape, dtype,
+                             {"dimension_numbers": (((1,), (0,)), ((), ()))})
+        if packet is _A.bmm:
+            return self.emit("dot", args[:2], shape, dtype,
+                             {"dimension_numbers": (((2,), (1,)), ((0,), (0,)))})
+        if packet is _A.addmm:  # bias + a @ b
+            d = self.emit("dot", args[1:3], shape, dtype,
+                          {"dimension_numbers": (((1,), (0,)), ((), ()))})
+            return self.emit("add", [d, self.promote_rank(args[0], len(shape))], shape,
+                             dtype)
+        if packet in _REDUCE:
+            dims = args[1] if len(args) > 1 else kwargs.get("dim")
+            if isinstance(dims, int):
+                dims = [dims]
+            keep = (args[2] if len(args) > 2 else kwargs.get("keepdim", False))
+            x = args[0]
+            if packet is _A.sum and dtype is not None:
+                x = self.convert(x, dtype)
+            return self.reduce(_REDUCE[packet], x, dims, bool(keep), dtype)
+        if packet is _A.mean:
+            dims = args[1] if len(args) > 1 else kwargs.get("dim")
+            keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+            x = self.g[args[0]]
+            r = len(x.shape)
+            axes = [d % r for d in dims] if dims else list(range(r))
+            count = int(np.prod([x.shape[d] for d in axes]))
+            s = self.reduce("reduce_sum", args[0], axes, bool(keep), dtype)
+            return self.emit("div", [s, self.scalar(count, dtype)], shape, dtype)
+        if packet is _A._softmax:  # jax.nn.softmax's lowering
+            x, dim = args[0], args[1] % len(shape)
+            m = self.reduce("reduce_max", x, [dim], True, dtype)
+            e = self.emit("exp", [self.emit("sub", [x, m], shape, dtype)], shape, dtype)
+            s = self.reduce("reduce_sum", e, [dim], True, dtype)
+            return self.emit("div", [e, s], shape, dtype)
+        if packet in (_A.triu, _A.tril):
+            return self._tri(packet, args, shape, dtype)
+        if packet in (_A.embedding, _A.index):
+            return self._gather(packet, args, shape, dtype)
+        if packet in _FILL:
+            return self._fill(packet, args, kwargs, shape, dtype)
+        if packet is _A.arange:
+            return self._arange(args, kwargs, shape, dtype)
+        # anything else: an opaque node named after the op
+        params = {k: v for k, v in kwargs.items() if isinstance(v, (int, float, bool, str))}
+        params["target"] = str(tgt)
+        ins = [a for a in args if isinstance(a, Ref)]
+        name = packet.__name__ if packet is not None else str(tgt)
+        return self.emit(name, ins, shape, dtype or torch.float32, params)
+
+    # -- helpers for the cases above -------------------------------------------
+    def _node_ctx(self, node):
+        scope = (node.meta.get("custom") or {}).get("scope", "")
+        src = node.meta.get("stack_trace") or ""
+        return src, scope, self.layer_tag_fn(scope)
+
+    def _binary(self, op, node, args, kwargs, shape, dtype):
+        a = self.operand(args[0], dtype)
+        b = self.operand(args[1], dtype)
+        alpha = kwargs.get("alpha", 1)
+        if node.kwargs.get("rounding_mode") is not None:
+            op = f"div_{node.kwargs['rounding_mode']}"
+        if op == "pow" and not isinstance(args[1], Ref) and float(args[1]).is_integer():
+            x = self.convert(a, dtype)
+            return self.emit("integer_pow", [x], shape, dtype, {"y": int(args[1])})
+        a = self.promote_rank(self.convert(a, dtype), len(shape))
+        b = self.promote_rank(self.convert(b, dtype), len(shape))
+        if alpha != 1:
+            b = self.emit("mul", [b, self.scalar(alpha, dtype)], self.g[b].shape, dtype)
+        return self.emit(op, [a, b], shape, dtype)
+
+    def _collective(self, name, args, shape, dtype):
+        if name == "wait_tensor":
+            return args[0]
+        params = {"axes": (self.axis,), "groups": "full"}
+        if name == "all_reduce":
+            params["reduce_op"] = _REDUCE_OPS[args[1]]
+            return self.emit("all_reduce", [args[0]], shape, dtype, params)
+        if name == "all_gather_into_tensor":
+            params.update(all_gather_dimension=0, tiled=True)
+            return self.emit("all_gather", [args[0]], shape, dtype, params)
+        if name == "reduce_scatter_tensor":
+            params.update(scatter_dimension=0, tiled=True, reduce_op="add")
+            return self.emit("reduce_scatter", [args[0]], shape, dtype, params)
+        params.update(split_axis=0, concat_axis=0, tiled=True)
+        return self.emit("all_to_all", [args[0]], shape, dtype, params)
+
+    def _split(self, packet, args, node):
+        x = self.g[args[0]]
+        vals = node.meta.get("val")
+        if packet is _A.unbind:
+            dim = (args[1] if len(args) > 1 else 0) % len(x.shape)
+            return [self.reshape(self.slice(args[0], dim, i, i + 1), tuple(v.shape))
+                    for i, v in enumerate(vals)]
+        dim = (args[2] if len(args) > 2 else 0) % len(x.shape)
+        outs, start = [], 0
+        for v in vals:
+            n = v.shape[dim]
+            outs.append(self.slice(args[0], dim, start, start + n))
+            start += n
+        return outs
+
+    def _tri(self, packet, args, shape, dtype):
+        """``jnp.tril``/``jnp.triu``: a row/column iota mask and a select."""
+        k = args[1] if len(args) > 1 else 0
+        r, c = shape[-2], shape[-1]
+        i32 = torch.int64
+        rows = self.emit("iota", [], (r, c), i32, {"dimension": 0, "shape": (r, c)})
+        cols = self.emit("iota", [], (r, c), i32, {"dimension": 1, "shape": (r, c)})
+        rk = self.emit("add", [rows, self.scalar(k, i32)], (r, c), i32)
+        op = "ge" if packet is _A.tril else "le"
+        mask = self.emit(op, [rk, cols], (r, c), torch.bool)
+        mask = self.broadcast_to(mask, shape)
+        zero = self.broadcast_to(self.scalar(0, dtype), shape)
+        return self.emit("select", [mask, zero, args[0]], shape, dtype)
+
+    def _gather(self, packet, args, shape, dtype):
+        if packet is _A.embedding:
+            table, idx = args[0], args[1]
+            return self.emit("gather", [table, idx], shape, dtype, {"axis": 0})
+        x, indices = args[0], args[1]
+        dims = tuple(i for i, t in enumerate(indices) if t is not None)
+        ins = [x] + [t for t in indices if t is not None]
+        return self.emit("gather", ins, shape, dtype, {"axis": dims[0]} if len(dims) == 1
+                         else {"index_dims": dims})
+
+    def _fill(self, packet, args, kwargs, shape, dtype):
+        value = _FILL[packet]
+        if value is None:
+            if packet is _A.scalar_tensor:
+                value = args[0]
+            elif packet is _A.full_like:
+                value = args[1]
+            elif packet is _A.new_full:
+                value = args[2]
+            else:
+                value = args[1]
+        c = self.scalar(value, dtype)
+        if not shape:
+            return c
+        return self.emit("broadcast", [c], shape, dtype,
+                         {"shape": shape, "broadcast_dimensions": ()})
+
+    def _arange(self, args, kwargs, shape, dtype):
+        nums = [a for a in args if not isinstance(a, torch.dtype)]
+        start, end, step = (0, nums[0], 1) if len(nums) == 1 else (
+            nums[0], nums[1], nums[2] if len(nums) > 2 else 1)
+        if start == 0 and step == 1 and not dtype.is_floating_point:
+            return self.emit("iota", [], shape, dtype, {"dimension": 0, "shape": shape})
+        vals = torch.arange(start, end, step, dtype=dtype).to(torch.float64
+                                                              if dtype.is_floating_point
+                                                              else torch.int64)
+        return self.add_const(vals.numpy().astype(_NP_DTYPES[dtype]), dtype_name(dtype))
+
+
+def _norm(i: int, n: int) -> int:
+    if i < 0:
+        i += n
+    return min(max(i, 0), n)
+
+
+def _promote(dtypes) -> torch.dtype:
+    out = dtypes[0] if dtypes else torch.int64
+    for d in dtypes[1:]:
+        out = torch.promote_types(out, d)
+    return out
+
+
+# --------------------------------------------------------------------------
+# entry points
+
+
+def _fake_inputs(mode, leaves) -> list:
+    with mode:
+        return [torch.empty(tuple(leaf.shape), dtype=leaf.dtype) for leaf in leaves]
+
+
+def _lower(gm, name: str, layer_tag_fn, axis: str, rank_slot: bool):
+    """The fx graph of ``gm`` as a :class:`Graph`; with ``rank_slot`` the first
+    placeholder is the rank, emitted as ``axis_index`` where it is first
+    used (as ``lax.axis_index`` appears where the JAX code calls it)."""
+    t = Tracer(layer_tag_fn, axis)
+    t.g.name = name
+    env: dict = {}
+    in_ids: list[int] = []
+    rank_node = None
+    outs: list[int] = []
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            v = node.meta["val"]
+            if rank_slot and rank_node is None:
+                rank_node = node
+                continue
+            nid = t.g.add("input", (), tuple(v.shape), dtype_name(v.dtype),
+                          {"arg": len(in_ids)})
+            in_ids.append(nid)
+            env[node] = nid
+        elif node.op == "get_attr":
+            tensor = getattr(gm, node.target)
+            env[node] = t.add_const(tensor.detach().to(
+                torch.float32 if tensor.dtype == torch.bfloat16 else tensor.dtype
+            ).numpy(), dtype_name(tensor.dtype))
+        elif node.op == "call_function":
+            if rank_node is not None and rank_node not in env and rank_node in node.args:
+                t._ctx = t._node_ctx(node)
+                env[rank_node] = t.emit("axis_index", [], (),
+                                        dtype_name(rank_node.meta["val"].dtype),
+                                        {"axes": (axis,), "groups": "full"})
+            env[node] = t.lower(node, env)
+        elif node.op == "output":
+            torch.fx.node.map_arg(node.args[0], lambda a: outs.append(env[a]))
+    t.g.mark_output(*outs)
+    t.g.input_alias = {}
+    return t.g, in_ids, outs
+
+
+def _make_fx(flat_fn, fakes):
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    with fx_traceback.preserve_node_meta(), _SourceMode():
+        return make_fx(flat_fn, tracing_mode="fake")(*fakes)
+
+
+def _leaf_shapes(args) -> tuple[list, Any]:
+    leaves, treedef = tree_flatten(args)
+    for leaf in leaves:
+        if not hasattr(leaf, "shape") or not hasattr(leaf, "dtype"):
+            raise TypeError(f"trace inputs must be tensors or ShapeDtype, got {leaf!r}")
+    return leaves, treedef
+
+
+def trace(
+    fn: Callable,
+    *args,
+    layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
+    name: str = "graph",
+) -> tuple[Graph, list[int], list[int]]:
+    """Trace ``fn(*args)`` to a TensorIR Graph.
+
+    ``args`` are pytrees of tensors (real or fake) or :class:`ShapeDtype`s.
+    Returns ``(graph, input_node_ids, output_node_ids)`` where input ids are
+    in :func:`repro_torch.tree.tree_flatten` order (register sharding facts
+    against these).
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    leaves, treedef = _leaf_shapes(args)
+    fakes = _fake_inputs(FakeTensorMode(), leaves)
+
+    def flat_fn(*flat):
+        return tree_leaves(fn(*tree_unflatten(treedef, flat)))
+
+    gm = _make_fx(flat_fn, fakes)
+    return _lower(gm, name, layer_tag_fn, "model", rank_slot=False)
+
+
+def local_shape(shape, spec, size: int, axis: str) -> tuple:
+    """The per-rank shape of a leaf whose dims ``spec`` shards over ``axis``."""
+    out = list(shape)
+    for d, entry in enumerate(tuple(spec or ())):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if axis in names:
+            if out[d] % size:
+                raise ValueError(f"dim {d} of {tuple(shape)} is not divisible by "
+                                 f"{axis}={size}")
+            out[d] //= size
+    return tuple(out)
+
+
+def trace_sharded(
+    fn: Callable,
+    size: int,
+    in_specs,
+    *args,
+    axis: str = "model",
+    layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
+    name: str = "dist",
+) -> tuple[Graph, list[int], list[int]]:
+    """Trace the **per-rank** program of a tensor-parallel function, with
+    its collectives explicit.
+
+    ``fn(ctx, *args)`` receives a ``ParallelCtx`` over ``axis`` whose rank is
+    a traced 0-d int64 input (emitted as ``axis_index``).  ``args`` are
+    *global* shapes; ``in_specs`` holds one spec tree per argument, and each
+    input node carries the per-rank shape its spec gives.  The trace runs
+    under a fake process group of ``size`` ranks.
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.parallel.sharding import is_spec
+
+    leaves, treedef = _leaf_shapes(args)
+    specs = tree_leaves(tuple(in_specs), is_leaf=is_spec)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(specs)} input specs for {len(leaves)} input leaves")
+    local = [ShapeDtype(local_shape(leaf.shape, s, size, axis), leaf.dtype)
+             for leaf, s in zip(leaves, specs)]
+    mode = FakeTensorMode()
+    fakes = _fake_inputs(mode, [ShapeDtype((), torch.int64)] + local)
+
+    def flat_fn(rank, *flat):
+        ctx = ParallelCtx.tensor_parallel(size, rank=rank, axis=axis)
+        return tree_leaves(fn(ctx, *tree_unflatten(treedef, flat)))
+
+    with fake_process_group(size):
+        gm = _make_fx(flat_fn, fakes)
+    return _lower(gm, name, layer_tag_fn, axis, rank_slot=True)

@@ -21,7 +21,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel.collectives import vp_embed
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.scope import named_scope
+from repro_torch.tree import tree_map
 
 from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache
 from .mlp import mlp_fwd, mlp_init
@@ -40,16 +43,8 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _tree_index(tree, i: int):
-    return _tree_map(lambda a: a[i], tree)
+    return tree_map(lambda a: a[i], tree)
 
 
 class Model:
@@ -96,11 +91,28 @@ class Model:
         params["blocks"] = tuple(blocks)
         return params
 
+    def param_shapes(self) -> dict:
+        """The parameter tree as fake tensors (shapes and dtypes, no storage):
+        ``init`` run under a ``FakeTensorMode``, the counterpart of
+        ``jax.eval_shape(model.init, key)``."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        gen = torch.Generator(device=self.device)
+        with FakeTensorMode():
+            return self.init(gen)
+
     # ------------------------------------------------------------------ embed/head
     def _embed_tokens(self, params, ids):
-        """Row lookup with ``jnp.take``'s default semantics: a negative id
-        counts from the end, an id out of range gives a row of NaN."""
+        """Single device: row lookup with ``jnp.take``'s default semantics (a
+        negative id counts from the end, an id out of range gives a row of
+        NaN).  Under TP: the vocab-parallel lookup ``vp_embed`` in a
+        ``vp_embed`` scope, the region the verifier's meta rule trusts."""
         table = params["embed"]["w"]
+        if self.ctx.tp_axis:
+            if self.ctx.sp:
+                raise NotImplementedError("sequence parallelism is not ported yet")
+            with named_scope("vp_embed"):
+                return vp_embed(table, ids, self.ctx)
         V = table.shape[0]
         ids = torch.where(ids < 0, ids + V, ids)
         valid = (ids >= 0) & (ids < V)
@@ -128,8 +140,10 @@ class Model:
         return x
 
     def forward(self, params, batch, *, unroll: bool = False):
-        """Full forward -> logits (B, S, V).  ``unroll`` is accepted for the
-        JAX signature; layers are always a Python loop."""
+        """Full forward -> logits (B, S, V_loc[, sharded over tp]).  Each layer
+        runs in a ``layer<i>`` scope (per-layer memoization in the verifier).
+        ``unroll`` is accepted for the JAX signature; layers are always a
+        Python loop."""
         del unroll
         cfg, ctx = self.cfg, self.ctx
         x = self._embed_tokens(params, batch["tokens"])
@@ -137,8 +151,9 @@ class Model:
         positions = torch.arange(S, device=x.device)
         P = cfg.block_period
         for li in range(cfg.n_layers):
-            lp = _tree_index(params["blocks"][li % P], li // P)
-            x = self._layer_fwd(lp, x, positions, li % P)
+            with named_scope(f"layer{li}"):
+                lp = _tree_index(params["blocks"][li % P], li // P)
+                x = self._layer_fwd(lp, x, positions, li % P)
         x = ctx.sp_exit(x)
         x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return self._head(params, x)

@@ -1,0 +1,31 @@
+"""Shared distributed building blocks with registered verification templates.
+
+Functions here are used by BOTH the model code and the verifier's meta-rule
+template generation: the verifier traces these exact functions with its own
+tracer to obtain the trusted subgraph fingerprint it accepts at "vendor
+kernel" granularity (``repro_torch.core.rules.meta``).  Any mutation of the
+generated subgraph changes the fingerprint and the region stays unverified.
+"""
+from __future__ import annotations
+
+
+def vp_embed_partial(table, ids, rank):
+    """Vocab-parallel embedding *partial*: local-chunk lookup + range mask,
+    no reduction: the per-rank contribution whose sum over ranks is the full
+    lookup.
+
+    table: (V_loc, D) this rank's vocab rows; ids: integer tokens (any shape);
+    rank: this rank's index, a 0-d int64 tensor.
+    """
+    V_loc = table.shape[0]
+    off = rank * V_loc
+    local = (ids - off).clamp(0, V_loc - 1)
+    x = table[local]
+    mask = ((ids >= off) & (ids < off + V_loc))[..., None]
+    return x * mask.to(x.dtype)
+
+
+def vp_embed(table, ids, ctx):
+    """Vocab-parallel embedding: local-chunk lookup + range mask + psum over
+    the context's tensor-parallel axis."""
+    return ctx.psum_tp(vp_embed_partial(table, ids, ctx.tp_index()))

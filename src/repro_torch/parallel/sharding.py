@@ -1,0 +1,135 @@
+"""Sharding rules: map every parameter/input leaf to a PartitionSpec.
+
+These rules ARE the verifier's input relation registration: a leaf spec that
+shards dim d over the tp axis registers ``sharded(b, d', d)``; replicated
+leaves register ``duplicate``.  The same table cuts one single-device
+parameter set into the per-rank shards that TP execution runs on
+(``shard_params``).
+
+Megatron-style TP over axis "model" (the JAX package's table, dim for dim):
+  embed (V,D)        -> vocab-parallel      P('model', None)
+  lm_head (D,V)      -> column-parallel     P(None, 'model')
+  wq/wk/wv (D,Hhd)   -> column-parallel     P(None, 'model')   [heads sharded]
+  wo (Hhd,D)         -> row-parallel        P('model', None)
+  mlp wg/wu (D,F)    -> column-parallel     P(None, 'model')
+  mlp wo (F,D)       -> row-parallel        P('model', None)
+  ssm wx/wz/wdt      -> head-column         P(None, 'model')
+  norms, B/C         -> replicated
+(stacked block params carry a leading None for the n_blocks dim.)  Cache
+specs wait for the tp-decode scenario.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.tree import tree_map, tree_map_with_path
+
+TP = "model"
+
+
+class PartitionSpec(tuple):
+    """One entry per dim: the mesh axis name the dim is sharded over, or
+    None for a replicated dim (the counterpart of jax's PartitionSpec)."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def _spec_for(path: tuple, ndim: int, tp: str) -> PartitionSpec:
+    """PartitionSpec for one param leaf, identified by its tree path."""
+    names = [str(p) for p in path]
+    leaf = names[-1]
+    parent = names[-2] if len(names) >= 2 else ""
+    gparent = names[-3] if len(names) >= 3 else ""
+    stacked = "blocks" in names  # leading n_blocks dim
+    lead = (None,) if stacked else ()
+
+    def mk(*dims):
+        return P(*(lead + dims))
+
+    # --- embeddings / head -------------------------------------------------
+    if parent == "embed":
+        return P(tp, None)
+    if parent == "lm_head":
+        return P(None, tp)
+    # --- norms (replicated) -------------------------------------------------
+    if parent in ("ln1", "ln2", "ln_f", "qnorm", "knorm") or leaf == "s":
+        if parent == "out_norm":  # ssm gated norm: DI is head-sharded
+            return mk(tp)
+        return mk(*([None] * (ndim - (1 if stacked else 0))))
+    # --- attention -----------------------------------------------------------
+    if parent in ("wq", "wk", "wv"):
+        return mk(None, tp) if leaf == "w" else mk(tp)
+    if parent == "wo" and gparent == "attn":
+        return mk(tp, None) if leaf == "w" else mk(None)
+    # --- dense mlp -------------------------------------------------------------
+    if parent in ("wg", "wu", "wi") and gparent in ("mlp", "shared"):
+        return mk(None, tp) if leaf == "w" else mk(tp)
+    if parent == "wo" and gparent in ("mlp", "shared"):
+        return mk(tp, None) if leaf == "w" else mk(None)
+    # --- ssm -------------------------------------------------------------------
+    if parent in ("wx", "wz", "wdt") and gparent == "ssm":
+        return mk(None, tp) if leaf == "w" else mk(tp)
+    if parent in ("wB", "wC") and gparent == "ssm":
+        return mk(None, None) if leaf == "w" else mk(None)
+    if parent == "wo" and gparent == "ssm":
+        return mk(tp, None) if leaf == "w" else mk(None)
+    if parent == "ssm":
+        if leaf in ("dt_bias", "A_log", "Dskip"):
+            return mk(tp)
+        if leaf == "conv_x":
+            return mk(None, tp)
+        if leaf in ("conv_B", "conv_C"):
+            return mk(None, None)
+    # fallback: replicate
+    return P(*([None] * ndim))
+
+
+def param_specs(param_shapes: Any, tp: str = TP):
+    """PartitionSpec tree matching a params tree (of tensors, fake tensors or
+    anything with a ``shape``)."""
+    return tree_map_with_path(lambda path, leaf: _spec_for(path, len(leaf.shape), tp),
+                              param_shapes)
+
+
+def batch_spec(batch: Any, dp):
+    """Input sharding: batch dim over the dp axis (None: replicated)."""
+
+    def visit(leaf):
+        nd = len(leaf.shape)
+        if nd == 0:
+            return P()
+        return P(dp, *([None] * (nd - 1)))
+
+    return tree_map(visit, batch)
+
+
+def shard_params(params: Any, specs: Any, rank: int, size: int, axis: str = TP):
+    """This rank's shard of every leaf: the dims that ``specs`` shards over
+    ``axis`` cut into ``size`` equal blocks, block ``rank`` kept (a
+    contiguous copy)."""
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(params)
+    spec_leaves = tree_flatten(specs, is_leaf=is_spec)[0]
+    out = []
+    for t, spec in zip(leaves, spec_leaves):
+        for d, entry in enumerate(spec):
+            if entry == axis:
+                n = t.shape[d] // size
+                t = t.narrow(d, rank * n, n)
+        out.append(t.contiguous())
+    return tree_unflatten(treedef, out)

@@ -1,0 +1,100 @@
+"""Megatron TP on gloo ranks on the CPU equals the single-device port, the
+counterpart of the first check of tests/test_tp_equivalence.py (there a
+shard_map over 8 host devices): llama3_8b and qwen3_4b SMOKE in f32, at
+TP 2 and TP 4, each rank holding its shard of one single-device parameter
+set (``param_specs``).  The rows are split over ranks for the
+row-parallel sums only, so the logits agree to f32 rounding: relative RMS
+error at most 1e-5 (about 5e-7 measured)."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.parallel import spmd  # noqa: E402
+from repro_torch.parallel.ctx import ParallelCtx  # noqa: E402
+from repro_torch.parallel.sharding import (P, batch_spec, param_specs,  # noqa: E402
+                                           shard_params)
+
+REL_RMS = 1e-5
+SEED = 3
+
+
+def _cfg(arch, tp):
+    # the smoke configs' 2 KV heads, padded to the TP degree like CONFIG's 8 to 16
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                               n_kv_heads_padded=max(tp, 2))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", ["llama3_8b", "qwen3_4b"])
+def test_tp_logits_equal_single_device(arch, tp):
+    cfg = _cfg(arch, tp)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    model = Model(cfg, impl="reference", device="cpu")
+    params = model.init(torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        want = model.forward(params, {"tokens": tokens})
+    ranks = spmd.run(spmd.tp_forward, tp, (cfg, SEED, tokens, "reference", "cpu"),
+                     timeout=300)
+    shards = [r["logits"] for r in ranks]
+    assert all(s.shape == (2, 16, cfg.vocab_p // tp) for s in shards)
+    got = torch.cat(shards, dim=-1)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= REL_RMS, rel
+
+
+def test_shard_params_follows_param_specs():
+    cfg = _cfg("llama3_8b", 4)
+    params = Model(cfg, impl="reference", device="cpu").init(torch.Generator().manual_seed(0))
+    specs = param_specs(params)
+    assert specs["embed"]["w"] == P("model", None)
+    assert specs["blocks"][0]["attn"]["wo"]["w"] == P(None, "model", None)
+    assert specs["blocks"][0]["mlp"]["wg"]["w"] == P(None, None, "model")
+    shard = shard_params(params, specs, 1, 4)
+    wq, wo = params["blocks"][0]["attn"]["wq"]["w"], params["blocks"][0]["attn"]["wo"]["w"]
+    n = wq.shape[-1] // 4
+    assert torch.equal(shard["blocks"][0]["attn"]["wq"]["w"], wq[..., n:2 * n])
+    assert torch.equal(shard["blocks"][0]["attn"]["wo"]["w"], wo[:, n:2 * n])
+    assert torch.equal(shard["ln_f"]["s"], params["ln_f"]["s"])
+
+
+def _collectives_rank(rank, world):
+    ctx = ParallelCtx.tensor_parallel(world, rank=torch.tensor(rank))
+    x = torch.arange(6.0).reshape(2, 3) + 10 * rank
+    ones = torch.ones(2 * world, 3) * (rank + 1)
+    # a clone waits on the functional collective's result
+    return {"sum": ctx.psum_tp(x).clone(), "max": ctx.pmax_tp(x).clone(),
+            "gather": ctx.gather_tp(x, 1).clone(),
+            "scatter": ctx.scatter_tp(ones, 0).clone(), "index": int(ctx.tp_index()),
+            "sp_enter": ctx.sp_enter(x).clone()}
+
+
+def test_collectives_on_gloo_ranks():
+    world = 2
+    xs = [torch.arange(6.0).reshape(2, 3) + 10 * r for r in range(world)]
+    for rank, out in enumerate(spmd.run(_collectives_rank, world, timeout=120)):
+        assert out["index"] == rank
+        assert torch.equal(out["sum"], xs[0] + xs[1])
+        assert torch.equal(out["sp_enter"], xs[0] + xs[1])
+        assert torch.equal(out["max"], torch.maximum(xs[0], xs[1]))
+        assert torch.equal(out["gather"], torch.cat(xs, dim=1))
+        assert torch.equal(out["scatter"], torch.full((2, 3), 3.0))
+    with pytest.raises(NotImplementedError):
+        ParallelCtx(tp_axis="model", tp_size=2, sp=True).sp_exit(xs[0])
+    with pytest.raises(NotImplementedError):
+        ParallelCtx(dp_axis="data", dp_size=2).psum_dp(xs[0])
+    assert batch_spec({"tokens": xs[0]}, "data") == {"tokens": P("data", None)}
+
+
+def test_a_failing_rank_is_reported():
+    with pytest.raises(RuntimeError, match="a rank failed"):
+        spmd.run(_fail_on_rank_1, 2, timeout=120)
+
+
+def _fail_on_rank_1(rank, world):
+    if rank == 1:
+        raise ValueError("planted")
+    return rank
