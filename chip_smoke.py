@@ -123,8 +123,9 @@ CAMPAIGN_REFERENCE = {
     "wrong_transpose": "detected",
 }
 
-FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal
+FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal; the first two are timed
     (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True),  # qwen3_4b prefill shape
+    (1, 8, 4, 1024, 1024, 128, torch.bfloat16, True),  # llama3_8b TP-4, per rank
     (1, 8, 2, 96, 160, 32, torch.float32, False),  # not a multiple of the tiles
     (1, 8, 2, 96, 160, 32, torch.bfloat16, False),
     (1, 4, 2, 96, 160, 64, torch.bfloat16, True),  # causal Sq < Sk, top-left
@@ -378,9 +379,12 @@ def phase_resources() -> None:
     emit("kernel resources", **out)
 
 
-def phase_flash(gen) -> dict:
-    row = None
-    for B, Hq, Hkv, Sq, Sk, D, dt, causal in FA_CASES:
+def phase_flash(gen) -> list[dict]:
+    """Every FA_CASES row against the plain version; the first two (the
+    qwen3_4b prefill shape and the tp_forward phase's per-rank shape) are
+    timed against the plain version and SDPA, and their rows returned."""
+    rows = []
+    for i, (B, Hq, Hkv, Sq, Sk, D, dt, causal) in enumerate(FA_CASES):
         q = randn(gen, (B, Hq, Sq, D), dt)
         k = randn(gen, (B, Hkv, Sk, D), dt)
         v = randn(gen, (B, Hkv, Sk, D), dt)
@@ -390,10 +394,10 @@ def phase_flash(gen) -> dict:
         err = close(out, ref, FA_TOL[dt])
         case = {"shape": [B, Hq, Hkv, Sq, Sk, D], "dtype": str(dt), "causal": causal,
                 "max_abs_err": err, "tol": FA_TOL[dt]}
-        if row is None:  # the main path's shape: time it
-            pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+        if i < 2:  # a main path's shape: time it
+            pairs = sum(min(r + 1, Sk) for r in range(Sq)) if causal else Sq * Sk
             args = (q, k, v)
-            row = {"max_abs_err": err}
+            row = {"shape": case["shape"], "max_abs_err": err}
             row["ms"] = time_ms(lambda *a: fa.flash_attention(*a, causal=causal), args)
             row["call_ms"] = call_ms(lambda *a: fa.flash_attention(*a, causal=causal), args)
             row["plain_ms"] = time_ms(
@@ -403,8 +407,9 @@ def phase_flash(gen) -> dict:
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes(q, k, v, out), (4.0 * D * B * Hq * pairs, dt))
             case.update(row)
+            rows.append(row)
         emit("kernel flash_attention", **case)
-    return row
+    return rows
 
 
 def phase_rmsnorm(gen) -> dict:
@@ -705,7 +710,7 @@ def main() -> int:
     with torch.inference_mode():
         phase_device()
         phase_resources()
-        fa_row = phase_flash(gen)
+        fa_row, fa_tp_row = phase_flash(gen)
         rn_row = phase_rmsnorm(gen)
         ssd_row = phase_ssd(gen_ssm)
         cfg = get_config("qwen3_4b")
@@ -732,7 +737,8 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
-         "launches": launches["flash_attention"], **fa_row},
+         "launches": launches["flash_attention"], **fa_row,
+         "tp_forward_shape": fa_tp_row},
         {"name": "rmsnorm", "route": "triton",
          "source": "src/repro_torch/kernels/rmsnorm.py",
          "replaces": "src/repro/kernels/rmsnorm.py:22",
@@ -747,7 +753,8 @@ def main() -> int:
     for row in kernels:  # every main path's count, read around that path
         row["launches_by_path"] = {path: [c[row["name"]] for c in n] if isinstance(n, list)
                                    else n[row["name"]] for path, n in paths.items()}
-    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("launches_by_path",)}
+    extra = ("launches_by_path", "tp_forward_shape")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

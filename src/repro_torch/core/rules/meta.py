@@ -189,8 +189,20 @@ def _vp_embed_template_ok(prop, nids, table_shape, ids_shape, dtype,
             lambda ctx, t, i: vp_embed(t, i, ctx), prop.size,
             (P(prop.axis, None), P()), tbl, idv, axis=prop.axis)
         body = [n.id for n in gt if n.op not in ("input", "param", "const")]
-        _vp_embed_templates[key] = gt.fingerprint(sorted(body),
-                                                  normalize_slices=True)
+        # the template's reduction is checked too: one all_reduce, a sum
+        # over the region's axis, and it is the template's output
+        reduces = [n for n in gt if n.op in ("all_reduce", "all_gather",
+                                             "reduce_scatter")]
+        if not (len(reduces) == 1 and reduces[0].op == "all_reduce"
+                and reduces[0].param("reduce_op") == "add"
+                and tuple(reduces[0].param("axes")) == (prop.axis,)
+                and list(gt.outputs) == [reduces[0].id]):
+            _vp_embed_templates[key] = None
+        else:
+            _vp_embed_templates[key] = gt.fingerprint(sorted(body),
+                                                      normalize_slices=True)
+    if _vp_embed_templates[key] is None:
+        return False
     region_fp = prop.dist.fingerprint(
         sorted(n for n in nids if prop.dist[n].op not in ("const",)),
         normalize_slices=True)
@@ -198,22 +210,54 @@ def _vp_embed_template_ok(prop, nids, table_shape, ids_shape, dtype,
     return region_fp == _vp_embed_templates[key]
 
 
+class _RankCtx:
+    """One rank of ``vp_embed``'s context, in one process: the rank tensor,
+    and a ``psum_tp`` that returns what it was asked to sum, wrapped, for
+    ``_generator_ok`` to add up over ranks.  The template may call no other
+    method of the context."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+
+    def tp_index(self):
+        import torch
+
+        return torch.tensor(self.rank)
+
+    def psum_tp(self, x):
+        return _Summed(x)
+
+
+class _Summed:
+    def __init__(self, x):
+        self.x = x
+
+
 def _generator_ok(size: int) -> bool:
     """The trusted generator is checked, not assumed: on a small table
-    (``V_loc`` = 3 rows a rank), the sum over ranks of ``vp_embed_partial``
-    equals the plain lookup for every id in range, and is zero past it."""
+    (``V_loc`` = 3 rows a rank, values of both signs), ``vp_embed`` run on
+    every rank with its collective emulated over ranks equals the plain
+    lookup for every id in range, and is zero past it.  A reduction other
+    than the sum, or work after it, fails the check."""
     if size not in _generator_checked:
         import torch
 
-        from repro_torch.parallel.collectives import vp_embed_partial
+        from repro_torch.parallel.collectives import vp_embed
 
         V_loc, V = 3, 3 * size
         table = torch.arange(1, V * 2 + 1, dtype=torch.float32).reshape(V, 2)
+        table = table * torch.tensor([1.0, -1.0])
         ids = torch.arange(-2, V + 2).reshape(1, -1)
-        total = sum(vp_embed_partial(table[r * V_loc:(r + 1) * V_loc], ids,
-                                     torch.tensor(r)) for r in range(size))
-        valid = ((ids >= 0) & (ids < V))[..., None]
-        want = torch.where(valid, table[ids.clamp(0, V - 1)], 0.0)
-        _generator_checked[size] = bool(torch.equal(total, want))
+        try:
+            outs = [vp_embed(table[r * V_loc:(r + 1) * V_loc], ids, _RankCtx(r))
+                    for r in range(size)]
+        except (AttributeError, TypeError):  # another collective, or work after it
+            outs = []
+        ok = bool(outs) and all(isinstance(o, _Summed) for o in outs)
+        if ok:
+            total = sum(o.x for o in outs)
+            valid = ((ids >= 0) & (ids < V))[..., None]
+            want = torch.where(valid, table[ids.clamp(0, V - 1)], 0.0)
+            ok = torch.equal(total, want)
+        _generator_checked[size] = ok
     return _generator_checked[size]
-

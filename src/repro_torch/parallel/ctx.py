@@ -17,7 +17,7 @@ yet: each raises ``NotImplementedError`` when it is switched on.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -47,31 +47,29 @@ class ParallelCtx:
     # this rank's index along tp_axis, a 0-d int64 tensor; under the
     # verifier's tracer it is a traced input, emitted as ``axis_index``
     rank: Optional[torch.Tensor] = field(default=None, compare=False, repr=False)
-    # the tp axis' process group; None is the default group
-    group: Any = field(default=None, compare=False, repr=False)
 
     @staticmethod
     def single() -> "ParallelCtx":
         return ParallelCtx()
 
     @staticmethod
-    def tensor_parallel(size: int, rank: Optional[torch.Tensor] = None, group=None,
+    def tensor_parallel(size: int, rank: Optional[torch.Tensor] = None,
                         axis: str = "model") -> "ParallelCtx":
         """Megatron TP over ``axis`` (experts, when there are any, over the
         same axis, as ``ParallelCtx.from_mesh`` sets it in the JAX package)."""
         return ParallelCtx(tp_axis=axis, tp_size=size, ep_axis=axis, ep_size=size,
-                           rank=rank, group=group)
+                           rank=rank)
 
-    def with_rank(self, rank: torch.Tensor, group=None) -> "ParallelCtx":
-        return replace(self, rank=rank, group=group if group is not None else self.group)
+    def with_rank(self, rank: torch.Tensor) -> "ParallelCtx":
+        return replace(self, rank=rank)
 
     @property
     def distributed(self) -> bool:
         return self.tp_axis is not None or self.dp_axis is not None
 
     def _group(self):
-        if self.group is not None:
-            return self.group
+        """The tp axis' process group: the default group, which holds every
+        rank while tp is the only axis that runs."""
         import torch.distributed as dist
 
         return dist.group.WORLD

@@ -39,6 +39,9 @@ def _free_port() -> int:
 def _worker(fn, rank: int, world: int, port: int, args: tuple, results) -> None:
     import torch.distributed as dist
 
+    # gloo binds to the interface the host name resolves to, and hangs where
+    # that is not reachable; the ranks all run on this host
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     try:
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=world)
@@ -62,9 +65,6 @@ def run(fn: Callable, world: int, args: tuple = (), timeout: float = 600.0) -> l
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    # gloo binds to the interface the host name resolves to, and hangs where
-    # that is not reachable; the ranks all run on this host
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     procs = [ctx.Process(target=_worker, args=(fn, r, world, port, args, results),
                          daemon=True) for r in range(world)]
     for p in procs:

@@ -20,7 +20,7 @@ from typing import Optional
 from repro_torch.configs import get_config
 
 from ..plan import Plan, PlanError, Scenario
-from .harness import BuildCtx, GraphPair, round_layers, verify_pspecs
+from .harness import BuildCtx, GraphPair, round_layers
 from .registry import DEFAULT_SCENARIOS, ScenarioRegistry, ScenarioSpec
 
 # importing the scenario modules populates DEFAULT_SCENARIOS
@@ -54,5 +54,4 @@ def get_arch_config(arch: str, smoke: bool = False):
 __all__ = [
     "BuildCtx", "DEFAULT_SCENARIOS", "GraphPair", "ScenarioRegistry",
     "ScenarioSpec", "build_pair", "get_arch_config", "round_layers",
-    "verify_pspecs",
 ]

@@ -28,7 +28,7 @@ from repro_torch.core.trace import (LAYER_TAG_STRIDE, ShapeDtype, trace,
                                     trace_sharded)
 from repro_torch.models import Model
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.parallel.sharding import is_spec, param_specs
+from repro_torch.parallel.sharding import is_spec
 from repro_torch.tree import tree_leaves
 
 
@@ -93,14 +93,6 @@ class BuildCtx:
 
 def _shape_sig(shapes) -> tuple:
     return tuple((tuple(a.shape), str(a.dtype)) for a in tree_leaves(shapes))
-
-
-# ------------------------------------------------------------- param specs
-def verify_pspecs(param_shapes, cfg):
-    """Param specs for the TP verification formulation.  (MoE experts, which
-    the JAX package shards over their FFN width here, are not ported yet.)"""
-    del cfg
-    return param_specs(param_shapes)
 
 
 # ------------------------------------------------------------ shape helpers
@@ -177,5 +169,5 @@ def flat_spec_leaves(specs) -> list:
 
 __all__ = [
     "BuildCtx", "GraphPair", "batch_avals", "flat_spec_leaves", "model_pair",
-    "round_layers", "stamped_or_full", "stamped_parts", "verify_pspecs",
+    "round_layers", "stamped_or_full", "stamped_parts",
 ]

@@ -10,7 +10,7 @@ import copy
 
 from repro_torch.core.verifier import OutputSpec
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.parallel.sharding import P
+from repro_torch.parallel.sharding import P, param_specs
 from repro_torch.tree import tree_map
 
 from ..plan import TP_AXIS
@@ -22,7 +22,6 @@ from .harness import (
     flat_spec_leaves,
     model_pair,
     stamped_or_full,
-    verify_pspecs,
 )
 from .registry import DEFAULT_SCENARIOS as S
 
@@ -32,7 +31,7 @@ def _tp_forward_parts(arch: str, cfg, tp: int, batch: int, seq: int,
     """Trace the (baseline, per-rank) TP forward pair for ``cfg``."""
     pctx = ParallelCtx.tensor_parallel(tp, axis=TP_AXIS)
     model_s, model_d, param_shapes = model_pair(cfg, pctx)
-    pspecs = verify_pspecs(param_shapes, cfg)
+    pspecs = param_specs(param_shapes)
     b, seq = batch_avals(cfg, batch, seq)
     bspecs = tree_map(lambda _: P(), b)
 

@@ -266,3 +266,26 @@ def test_faulty_template_generator_is_caught(monkeypatch):
     rep = _verify(build_pair("llama3_8b", plan, scen, stamp=False))
     assert not rep.verified
     assert any(b.src.startswith("test_torch_trace.py") for b in rep.bug_sites[:3])
+
+
+@pytest.mark.parametrize("reduce", ["pmax_tp", "psum_twice"])
+def test_faulty_template_reduction_is_caught(monkeypatch, reduce):
+    """The trusted template's reduction is checked too: a ``vp_embed`` that
+    reduces with a max, or adds the sum to itself, in both the model and
+    the template leaves the pair unverified."""
+    plan = Plan(tp=2, layers=1, seq=8, smoke=True)
+    scen = plan.scenarios()[0]
+
+    def wrong(table, ids, ctx):
+        x = collectives.vp_embed_partial(table, ids, ctx.tp_index())
+        if reduce == "pmax_tp":
+            return ctx.pmax_tp(x)
+        y = ctx.psum_tp(x)
+        return y + y
+
+    monkeypatch.setattr(collectives, "vp_embed", wrong)
+    monkeypatch.setattr(model_mod, "vp_embed", wrong)
+    monkeypatch.setattr(meta, "_generator_checked", {})
+    monkeypatch.setattr(meta, "_vp_embed_templates", {})
+    rep = _verify(build_pair("llama3_8b", plan, scen, stamp=False))
+    assert not rep.verified
