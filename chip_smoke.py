@@ -14,22 +14,32 @@ plain PyTorch version on the card, with times), then for each model at full
 width, with random weights from a seeded generator: prefill (through the
 kernels, checked against the reference path) and serve (the engine answers
 four requests; prefill logits are checked against the engine path's
-``decode_step``).  The models are qwen3_4b (flash attention) and
-mamba2_130m (the SSD scan).  Then the verifier's main path: verify (the
-port's ``Session`` proves tp-forward at tp 4 for llama3_8b and qwen3_4b at
-full width and depth, host seconds), campaign (every registered injector on
-llama3_8b's tp4 tp-forward pair, each cell held to the JAX reference's
-outcome) and tp_forward (the per-rank TP program the verifier proves, run
-on four gloo ranks sharing the card, llama3_8b at full width with two
-layers, flash attention on every layer of every rank; logits gathered on
-rank 0 and held to the single-device model).  Then a ``kernels`` line and,
-last, ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit
-code is not 0; without a CUDA device the script exits 1 before any phase.
+``decode_step``).  The models are qwen3_4b, qwen1_5_4b (qkv biases) and
+chatglm3_6b (half-dim RoPE, 2 KV heads padded to 16), all through flash
+attention, and mamba2_130m (the SSD scan).  Then the verifier's main path:
+verify (the port's ``Session`` proves, at tp 4 at full width and depth,
+tp-forward and tp-decode for llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b
+and chatglm3_6b, and sp-forward for llama3_8b; host seconds), campaign
+(every registered injector on llama3_8b's tp4 tp-forward, tp-decode and
+sp-forward pairs and mamba2_130m's tp-forward pair, each cell held to the
+JAX reference's outcome), tp_forward (the per-rank TP program the verifier
+proves, run on four gloo ranks sharing the card, llama3_8b at full width
+with two layers, flash attention on every layer of every rank; logits
+gathered on rank 0 and held to the single-device model), tp_decode (the
+proved per-rank decode step on the same four ranks: a 32-token prompt fed
+one position at a time, then 8 more steps; every step's logits and the
+final KV cache shards held to the single-device ``decode_step``) and
+serve_verified (the serving launcher's ``--verify-tp`` pre-flight, then
+serving on the card).  Then a ``kernels`` line and, last, ``{"ok": true,
+"device": {...}}``.  Any failure raises, so the exit code is not 0; without
+a CUDA device the script exits 1 before any phase.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
@@ -50,8 +60,10 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.parallel import spmd  # noqa: E402
+from repro_torch.parallel.sharding import cache_specs, shard_params  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.verify import Plan, Session, run_campaign  # noqa: E402
 
@@ -104,28 +116,55 @@ SSM_LOGIT_BOUNDS = (0.1, 1.5)
 TP_LOGIT_BOUNDS = (3e-2, 0.2)
 TP_SIZE, TP_LAYERS, TP_TOKENS = 4, 2, (1, 1024)
 # The JAX reference's outcome of every cell of ``python -m repro.verify
-# campaign --arch llama3_8b --tp 4 --scenarios tp-forward`` (written here as
-# data: this script imports nothing of the JAX package).  The tp-forward
-# program has no all_gather or reduce_scatter, so the two injectors that
-# need one find no site.
-CAMPAIGN_REFERENCE = {
-    "": "clean_pass",
-    "drop_all_reduce": "detected",
-    "duplicate_all_reduce": "detected",
-    "precision_drop": "detected",
-    "shifted_slice": "detected",
-    "swap_reshape_dims": "detected",
-    "wrong_all_gather_dim": "skipped",
-    "wrong_collective_axis": "detected",
-    "wrong_collective_op": "detected",
-    "wrong_replica_groups": "detected",
-    "wrong_scatter_dim": "skipped",
-    "wrong_transpose": "detected",
-}
+# campaign --arch <arch> --tp 4 --scenarios <scenario>`` (written here as
+# data: this script imports nothing of the JAX package), by (arch,
+# scenario), listing the injectors that find no site ("skipped") and the
+# rest detected.  tp-forward and tp-decode have no all_gather or
+# reduce_scatter; sp-forward has no all_reduce; mamba2_130m's SSM layers
+# have no transpose whose two leading dims both move data.
+_INJECTORS = ("drop_all_reduce", "duplicate_all_reduce", "precision_drop",
+              "shifted_slice", "swap_reshape_dims", "wrong_all_gather_dim",
+              "wrong_collective_axis", "wrong_collective_op", "wrong_replica_groups",
+              "wrong_scatter_dim", "wrong_transpose")
 
-FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal; the first two are timed
-    (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True),  # qwen3_4b prefill shape
+
+def _reference(*skipped: str) -> dict:
+    return {"": "clean_pass", **{i: "skipped" if i in skipped else "detected"
+                                 for i in _INJECTORS}}
+
+
+CAMPAIGN_REFERENCE = {
+    ("llama3_8b", "tp-forward"): _reference("wrong_all_gather_dim", "wrong_scatter_dim"),
+    ("llama3_8b", "tp-decode"): _reference("wrong_all_gather_dim", "wrong_scatter_dim"),
+    ("llama3_8b", "sp-forward"): _reference(
+        "drop_all_reduce", "duplicate_all_reduce", "wrong_collective_axis",
+        "wrong_collective_op", "wrong_replica_groups"),
+    ("mamba2_130m", "tp-forward"): _reference(
+        "wrong_all_gather_dim", "wrong_scatter_dim", "wrong_transpose"),
+}
+# The plans the verify phase proves at tp 4, full width and depth.
+VERIFY_PLANS = [(arch, kind) for kind in ("tp-forward", "tp-decode")
+                for arch in ("llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b",
+                             "chatglm3_6b")] + [("llama3_8b", "sp-forward")]
+# llama3_8b TP-4 serving step (TP_LAYERS layers, batch 2) against the
+# single-device decode_step: a TP_DECODE_PROMPT-token prompt fed one
+# position at a time, then TP_DECODE_STEPS more, into caches of
+# TP_DECODE_MAX_LEN positions.  (Every step's logits: relative RMS error,
+# max abs error; the final cache shards: relative RMS error of the worst
+# leaf.)  A CPU emulation of the same comparison (scripts/tp_logit_bounds.py
+# --decode: full width, 2 layers, batch 2, 32 + 8 positions, bf16, reference
+# path, run on the H100 machine's host) read 1.03% relative RMS over all
+# steps (1.09% at the worst step), 0.056 at most, and 0.58% on the worst
+# cache leaf (1.4e-6 and 9e-7 in f32); the bounds leave about 3x headroom.
+TP_DECODE_BATCH, TP_DECODE_PROMPT, TP_DECODE_STEPS, TP_DECODE_MAX_LEN = 2, 32, 8, 64
+TP_DECODE_BOUNDS = (3e-2, 0.2)
+TP_DECODE_CACHE_REL_RMS = 2e-2
+
+FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal; the first three are timed
+    # qwen3_4b's prefill shape, and chatglm3_6b's (32 q-heads, 2 KV heads padded to 16)
+    (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True),
     (1, 8, 4, 1024, 1024, 128, torch.bfloat16, True),  # llama3_8b TP-4, per rank
+    (2, 32, 32, 1024, 1024, 128, torch.bfloat16, True),  # qwen1_5_4b prefill (MHA)
     (1, 8, 2, 96, 160, 32, torch.float32, False),  # not a multiple of the tiles
     (1, 8, 2, 96, 160, 32, torch.bfloat16, False),
     (1, 4, 2, 96, 160, 64, torch.bfloat16, True),  # causal Sq < Sk, top-left
@@ -380,9 +419,10 @@ def phase_resources() -> None:
 
 
 def phase_flash(gen) -> list[dict]:
-    """Every FA_CASES row against the plain version; the first two (the
-    qwen3_4b prefill shape and the tp_forward phase's per-rank shape) are
-    timed against the plain version and SDPA, and their rows returned."""
+    """Every FA_CASES row against the plain version; the first three (the
+    qwen3_4b and chatglm3_6b prefill shape, the tp_forward phase's per-rank
+    shape and the qwen1_5_4b prefill shape) are timed against the plain
+    version and SDPA, and their rows returned."""
     rows = []
     for i, (B, Hq, Hkv, Sq, Sk, D, dt, causal) in enumerate(FA_CASES):
         q = randn(gen, (B, Hq, Sq, D), dt)
@@ -394,7 +434,7 @@ def phase_flash(gen) -> list[dict]:
         err = close(out, ref, FA_TOL[dt])
         case = {"shape": [B, Hq, Hkv, Sq, Sk, D], "dtype": str(dt), "causal": causal,
                 "max_abs_err": err, "tol": FA_TOL[dt]}
-        if i < 2:  # a main path's shape: time it
+        if i < 3:  # a main path's shape: time it
             pairs = sum(min(r + 1, Sk) for r in range(Sq)) if causal else Sq * Sk
             args = (q, k, v)
             row = {"shape": case["shape"], "max_abs_err": err}
@@ -595,9 +635,10 @@ def host_cpu() -> str:
 
 
 def phase_verify(card: str) -> None:
-    """The port's verifier proves tp-forward at tp 4 at full width and depth
-    (CONFIG, 3 traced block periods stamped to the full depth).  Host seconds
-    on the machine that has the card: the verifier executes nothing on it."""
+    """The port's verifier proves each of VERIFY_PLANS at tp 4 at full width
+    and depth (CONFIG, 3 traced block periods stamped to the full depth).
+    Host seconds on the machine that has the card: the verifier executes
+    nothing on it."""
     cpu, failed = host_cpu(), []
     # the process's first make_fx pays for imports and dispatcher caches:
     # time it apart, on a small pair, so each arch's trace_s is steady state
@@ -606,35 +647,40 @@ def phase_verify(card: str) -> None:
         session.verify("llama3_8b", Plan(tp=2, smoke=True))
     emit("verify warm-up", arch="llama3_8b SMOKE", tp=2, seconds=time.perf_counter() - t0,
          host_cpu=cpu, card=card)
-    for arch in ("llama3_8b", "qwen3_4b"):
+    plans = {"tp-forward": {}, "tp-decode": {"mode": "decode"}, "sp-forward": {"sp": True}}
+    for arch, kind in VERIFY_PLANS:
         with Session() as session:
-            rep = session.verify(arch, Plan(tp=TP_SIZE))
-        emit("verify", arch=arch, tp=TP_SIZE, verified=rep.verified, stamped=rep.stamped,
-             base_nodes=rep.num_base_nodes, dist_nodes=rep.num_dist_nodes,
-             facts=rep.num_facts, trace_s=rep.timings.trace_s,
-             stamp_s=rep.timings.stamp_s, rules_s=rep.timings.rules_s,
-             total_s=rep.elapsed_s, host_cpu=cpu, card=card,
+            rep = session.verify(arch, Plan(tp=TP_SIZE, **plans[kind]))
+        emit("verify", arch=arch, scenario=kind, tp=TP_SIZE, verified=rep.verified,
+             stamped=rep.stamped, base_nodes=rep.num_base_nodes,
+             dist_nodes=rep.num_dist_nodes, facts=rep.num_facts,
+             trace_s=rep.timings.trace_s, stamp_s=rep.timings.stamp_s,
+             rules_s=rep.timings.rules_s, total_s=rep.elapsed_s, host_cpu=cpu, card=card,
              bug_sites=[{"src": b.src, "category": b.category} for b in rep.bug_sites[:3]])
         if not (rep.verified and rep.stamped):
-            failed.append(arch)
+            failed.append(f"{arch} {kind}")
     if failed:
-        raise AssertionError(f"tp-forward at tp {TP_SIZE} not verified from a stamped "
-                             f"trace for {failed}")
+        raise AssertionError(f"not verified from a stamped trace at tp {TP_SIZE}: {failed}")
 
 
 def phase_campaign() -> None:
-    """Every registered injector on llama3_8b's tp4 tp-forward pair; each
-    cell's outcome must be the JAX reference's."""
-    t0 = time.perf_counter()
-    rep = run_campaign(["llama3_8b"], tp=TP_SIZE, scenarios=["tp-forward"])
-    seconds = time.perf_counter() - t0
-    got = {c.injector: c.outcome for c in rep.cells}
-    localized = sum(c.localized for c in rep.cells if c.outcome == "detected")
-    emit("campaign", arch="llama3_8b", tp=TP_SIZE, scenario="tp-forward",
-         detected=rep.detected, missed=rep.missed, false_positives=rep.false_positives,
-         localized=localized, cells=got, seconds=seconds)
-    if got != CAMPAIGN_REFERENCE or not rep.ok or localized != rep.detected:
-        raise AssertionError(f"campaign cells differ from the reference: {got}")
+    """Every registered injector on each (arch, scenario) pair of
+    CAMPAIGN_REFERENCE at tp 4; each cell's outcome must be the JAX
+    reference's, and every detected cell localized."""
+    failed = []
+    for (arch, kind), want in CAMPAIGN_REFERENCE.items():
+        t0 = time.perf_counter()
+        rep = run_campaign([arch], tp=TP_SIZE, scenarios=[kind])
+        seconds = time.perf_counter() - t0
+        got = {c.injector: c.outcome for c in rep.cells}
+        localized = sum(c.localized for c in rep.cells if c.outcome == "detected")
+        emit("campaign", arch=arch, tp=TP_SIZE, scenario=kind, detected=rep.detected,
+             missed=rep.missed, false_positives=rep.false_positives, localized=localized,
+             cells=got, seconds=seconds)
+        if got != want or not rep.ok or localized != rep.detected:
+            failed.append((arch, kind, got))
+    if failed:
+        raise AssertionError(f"campaign cells differ from the reference: {failed}")
 
 
 def tp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
@@ -687,6 +733,108 @@ def phase_tp_forward(gen) -> list:
     return launches
 
 
+def tp_decode_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
+    """One rank of the tp_decode phase (runs in a spawned process): the
+    decode step the verifier's tp-decode scenario proves, fed ``tokens`` one
+    position at a time, with the kernels' counts read around it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    out = spmd.tp_decode(rank, world, cfg, seed, tokens, TP_DECODE_MAX_LEN, device="cuda")
+    return {**out, "launches": counts()}
+
+
+def phase_tp_decode(gen) -> list:
+    """The per-rank serving step on four gloo ranks that share the card,
+    llama3_8b at full width with TP_LAYERS layers, bf16, batch
+    TP_DECODE_BATCH: a TP_DECODE_PROMPT-token prompt fed position by
+    position, then TP_DECODE_STEPS more steps (tokens drawn in advance).
+    Every step's logits (the ranks' vocab shards side by side) and each
+    rank's final cache shards (``cache_specs``) are held to the
+    single-device ``decode_step`` on the card.  Decode runs no kernel, as in
+    the JAX package (``chunked_attention`` on the caches)."""
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=TP_LAYERS)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
+    n = TP_DECODE_PROMPT + TP_DECODE_STEPS
+    tokens = torch.randint(0, cfg.vocab, (TP_DECODE_BATCH, n), generator=gen,
+                           device="cuda").cpu()
+    with torch.inference_mode():
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        caches = model.init_cache(TP_DECODE_BATCH, TP_DECODE_MAX_LEN)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n):
+            pos = torch.tensor(t, dtype=torch.int64).cuda()
+            logits, caches = model.decode_step(params, tokens[:, t].cuda(), caches, pos)
+            steps.append(logits.float())
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3 / n
+        ref = torch.stack(steps)
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spmd.run(tp_decode_rank, TP_SIZE, (cfg, seed, tokens), timeout=600)
+    seconds = time.perf_counter() - t0
+    got = torch.cat([r["logits"] for r in ranks], dim=-1).cuda()
+    check = logit_check("tp_decode TP-4 vs single device", got, ref, TP_DECODE_BOUNDS)
+    specs = cache_specs(caches)
+    cache_rel = {}
+    for rank, out in enumerate(ranks):
+        want = shard_params(caches, specs, rank, TP_SIZE)
+        for j, (block, wblock) in enumerate(zip(out["caches"], want)):
+            for name in sorted(wblock):
+                a, b = block[name].cuda().float(), wblock[name].float()
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    raise AssertionError(f"rank {rank} cache {j}/{name}: shape "
+                                         f"{tuple(a.shape)} or non-finite values")
+                key = f"{j}/{name}"
+                cache_rel[key] = max(cache_rel.get(key, 0.0),
+                                     ((a - b).norm() / b.norm()).item())
+    launches = [r["launches"] for r in ranks]
+    emit("tp_decode", arch=cfg.name, tp=TP_SIZE, layers=TP_LAYERS,
+         batch=TP_DECODE_BATCH, prompt=TP_DECODE_PROMPT, steps=TP_DECODE_STEPS,
+         max_len=TP_DECODE_MAX_LEN, dtype=cfg.dtype, backend="gloo",
+         ms_per_step_per_rank=[r["ms"] for r in ranks], single_device_ms_per_step=single_ms,
+         launches_per_rank=launches,
+         seconds=seconds, cache_rel_rms_err=cache_rel,
+         tol_cache_rel_rms=TP_DECODE_CACHE_REL_RMS, **check)
+    if max(cache_rel.values()) > TP_DECODE_CACHE_REL_RMS:
+        raise AssertionError(f"tp_decode cache shards differ from the single device's: "
+                             f"{cache_rel}")
+    want = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    if any(n != want for n in launches):
+        raise AssertionError(f"a rank's decode launched {launches}, expected {want}")
+    return launches
+
+
+def phase_serve_verified() -> None:
+    """The serving launcher with its decode-plan pre-flight on the card:
+    ``--verify-tp 2`` for qwen3_4b proves the plan, then serves; ``--verify-tp
+    4`` is an invalid plan for its SMOKE config (2 KV heads), as in the JAX
+    launcher, and must exit 2 before serving."""
+    for tp, want in ((2, 0), (4, 2)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = launch_serve.main(["--arch", "qwen3_4b", "--verify-tp", str(tp),
+                                      "--device", "cuda"])
+        out = buf.getvalue().splitlines()
+        verify = [line for line in out if line.startswith("[verify]")]
+        stats = [line for line in out if line.startswith("[stats]")]
+        emit("serve_verified", arch="qwen3_4b SMOKE", verify_tp=tp, exit=code,
+             verify=verify, served=sum(line.startswith("[done]") for line in out),
+             stats=stats, seconds=time.perf_counter() - t0)
+        if code != want:
+            raise AssertionError(f"--verify-tp {tp} exited {code}, expected {want}")
+        if want == 0 and not (any(line.startswith("[verify] VERIFIED") for line in verify)
+                              and stats and stats[0].endswith("on cuda")):
+            raise AssertionError(f"--verify-tp {tp}: not verified, or not served on the "
+                                 f"card: {out}")
+        if want == 2 and (stats or not any("ABORTING" in line for line in verify)):
+            raise AssertionError(f"--verify-tp {tp}: served an invalid plan: {out}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -710,7 +858,7 @@ def main() -> int:
     with torch.inference_mode():
         phase_device()
         phase_resources()
-        fa_row, fa_tp_row = phase_flash(gen)
+        fa_row, fa_tp_row, fa_qwen15_row = phase_flash(gen)
         rn_row = phase_rmsnorm(gen)
         ssd_row = phase_ssd(gen_ssm)
         cfg = get_config("qwen3_4b")
@@ -720,6 +868,15 @@ def main() -> int:
         phase_serve(cfg, model, params)
         del model, params
         torch.cuda.empty_cache()
+        dense_launches = {}
+        for arch in ("qwen1_5_4b", "chatglm3_6b"):
+            cfg = get_config(arch)
+            model = Model(cfg, device="cuda")
+            params = model.init(gen)
+            dense_launches[arch] = phase_prefill(cfg, model, params, gen, (2, 1024))
+            phase_serve(cfg, model, params)
+            del model, params
+            torch.cuda.empty_cache()
         cfg = get_config("mamba2_130m")
         model = Model(cfg, device="cuda")
         params = init_mamba2(model, gen_ssm)
@@ -731,14 +888,18 @@ def main() -> int:
     phase_verify(card)
     phase_campaign()
     tp_launches = phase_tp_forward(gen)
-    paths = {"qwen3_4b prefill": launches, "mamba2_130m prefill": ssm_launches,
-             "tp_forward, each rank": tp_launches}
+    decode_launches = phase_tp_decode(gen)
+    phase_serve_verified()
+    paths = {"qwen3_4b prefill": launches,
+             **{f"{arch} prefill": n for arch, n in dense_launches.items()},
+             "mamba2_130m prefill": ssm_launches, "tp_forward, each rank": tp_launches,
+             "tp_decode, each rank": decode_launches}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
          "launches": launches["flash_attention"], **fa_row,
-         "tp_forward_shape": fa_tp_row},
+         "tp_forward_shape": fa_tp_row, "qwen1_5_4b_shape": fa_qwen15_row},
         {"name": "rmsnorm", "route": "triton",
          "source": "src/repro_torch/kernels/rmsnorm.py",
          "replaces": "src/repro/kernels/rmsnorm.py:22",
@@ -753,7 +914,7 @@ def main() -> int:
     for row in kernels:  # every main path's count, read around that path
         row["launches_by_path"] = {path: [c[row["name"]] for c in n] if isinstance(n, list)
                                    else n[row["name"]] for path, n in paths.items()}
-    extra = ("launches_by_path", "tp_forward_shape")
+    extra = ("launches_by_path", "tp_forward_shape", "qwen1_5_4b_shape")
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,17 +25,28 @@
 #                         removed (models/attention.py)
 #   tp_vp_embed_shifted   vp_embed's offset is (rank + 1) * V_loc
 #                         (parallel/collectives.py)
+# Faults in the serving step and in sequence parallelism (caught by the
+# verify phase; the serving fault also by the tp_decode phase, run on its
+# own after chip_smoke.py; SP does not run on the card):
+#   decode_cache_head_offset  under TP a rank writes its new K one head over
+#                         (its heads rolled by one) in the KV cache
+#                         (models/attention.py)
+#   sp_gather_wrong_dim   sp_exit gathers along the hidden dim, then
+#                         reshapes to the sequence-gathered shape
+#                         (parallel/ctx.py)
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
 shift $(( $# > 0 ? 1 : 0 ))
 faults=${*:-fa_diagonal_unmasked fa_last_kv_stale ssd_carry_dropped ssd_state_not_decayed \
-ssd_slice_offset tp_attn_psum_dropped tp_vp_embed_shifted}
+ssd_slice_offset tp_attn_psum_dropped tp_vp_embed_shifted decode_cache_head_offset \
+sp_gather_wrong_dim}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
 csrc=kernels/csrc
 for name in $faults; do
+  alone=
   case $name in
     fa_diagonal_unmasked)
       file=$csrc/flash_attention.cu phase=flash_attention
@@ -60,7 +71,7 @@ for name in $faults; do
       old='const int p0 = blockIdx.x * PS,'
       new='const int p0 = 0 * blockIdx.x * PS,' ;;
     tp_attn_psum_dropped)
-      file=models/attention.py phase=verify
+      file=models/attention.py phase=verify alone=tp_forward
       old='y = linear(p["wo"], out)
     return ctx.sp_enter(y)
 
@@ -70,9 +81,17 @@ for name in $faults; do
 
 ' ;;
     tp_vp_embed_shifted)
-      file=parallel/collectives.py phase=verify
+      file=parallel/collectives.py phase=verify alone=tp_forward
       old='off = rank * V_loc'
       new='off = (rank + 1) * V_loc' ;;
+    decode_cache_head_offset)
+      file=models/attention.py phase=verify alone=tp_decode
+      old='cache["k"].index_copy_(2, write_at, knew)'
+      new='cache["k"].index_copy_(2, write_at, knew.roll(1, 1) if ctx.tp_axis else knew)' ;;
+    sp_gather_wrong_dim)
+      file=parallel/ctx.py phase=verify alone=
+      old='return self.gather_tp(x, seq_axis)'
+      new='return self.gather_tp(x, -1).reshape(*x.shape[:seq_axis], -1, x.shape[-1])' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name
@@ -98,13 +117,14 @@ PY
   diff "$root/src/repro_torch/$file" "$cu" | grep '^>'
   grep -E "\"(kernel )?$phase\"" "$out/fault_$name.txt" | cut -c 1-600
   grep -m 1 -E "AssertionError|Error:" "$out/fault_$name.txt" | cut -c 1-400
-  if [ "$phase" = verify ]; then  # the tp_forward phase on its own
-    (cd "$dir" && timeout 600 python3 -c '
+  if [ -n "$alone" ]; then  # the TP phase that runs this program, on its own
+    (cd "$dir" && timeout 600 python3 -c "
 import sys, torch, chip_smoke as cs
 cs.build.build_all()
-sys.exit(cs.phase_tp_forward(torch.Generator(device="cuda").manual_seed(cs.SEED)) is None)
-') > "$out/fault_${name}_tp_forward.txt" 2>&1
-    echo "$name: tp_forward phase alone exit $?"
-    grep -m 1 -E "AssertionError|Error:" "$out/fault_${name}_tp_forward.txt" | cut -c 1-400
+sys.exit(cs.phase_$alone(torch.Generator(device='cuda').manual_seed(cs.SEED)) is None)
+") > "$out/fault_${name}_$alone.txt" 2>&1
+    echo "$name: $alone phase alone exit $?"
+    grep -E "\"$alone\"" "$out/fault_${name}_$alone.txt" | cut -c 1-600
+    grep -m 1 -E "AssertionError|Error:" "$out/fault_${name}_$alone.txt" | cut -c 1-400
   fi
 done

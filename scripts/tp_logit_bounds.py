@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""CPU emulation behind chip_smoke.py's tp_forward logit bounds.
+"""CPU emulation behind chip_smoke.py's tp_forward and tp_decode logit bounds.
 
 chip_smoke.py runs llama3_8b at full width with 2 layers as Megatron TP on
 4 gloo ranks, in bf16, and holds the gathered logits to the single-device
@@ -8,13 +8,20 @@ output projections give bf16 partial sums that the all_reduce adds, where
 one device rounds one full-width sum.  This script makes the same
 comparison on the CPU (gloo ranks over CPU tensors, the reference attention
 path, the same seeds' kind of weights and tokens) and prints relative RMS
-and max abs error, in bf16 and, as a control, in f32.
+and max abs error, in bf16 and, as a control, in f32.  With ``--decode`` it
+compares the serving step instead: a batch of ``--batch`` rows fed
+``--prompt`` + ``--steps`` tokens one position at a time through
+``decode_step`` (``spmd.tp_decode`` on the ranks), every step's logits
+against the single-device step's, and each rank's final cache shards
+against the single-device caches' shards.
 
     python3 scripts/tp_logit_bounds.py [--layers 2] [--seq 1024] [--tp 4] [--smoke]
+    python3 scripts/tp_logit_bounds.py --decode [--prompt 32] [--steps 8] [--batch 2]
 
 Full width needs about 4 GB of host memory per rank plus 4 GB for the
 single-device model (llama3_8b's embedding and head are 0.5 G parameters
-each); run it where the host has that to spare.
+each), twice that for the f32 control; run it where the host has that to
+spare.
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.parallel import spmd  # noqa: E402
+from repro_torch.parallel.sharding import cache_specs, shard_params  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+DECODE_MAX_LEN = 64  # chip_smoke.py's tp_decode caches
 
 
 def compare(cfg, tp: int, seed: int, tokens) -> dict:
@@ -50,6 +61,40 @@ def compare(cfg, tp: int, seed: int, tokens) -> dict:
             "tp_seconds": time.perf_counter() - t0}
 
 
+def compare_decode(cfg, tp: int, seed: int, tokens) -> dict:
+    model = Model(cfg, impl="reference", device="cpu")
+    params = model.init(torch.Generator().manual_seed(seed))
+    caches = model.init_cache(tokens.shape[0], DECODE_MAX_LEN)
+    steps = []
+    with torch.inference_mode():
+        for t in range(tokens.shape[1]):
+            logits, caches = model.decode_step(params, tokens[:, t], caches, t)
+            steps.append(logits.float())
+    del params
+    ref = torch.stack(steps)
+    t0 = time.perf_counter()
+    ranks = spmd.run(spmd.tp_decode, tp, (cfg, seed, tokens, DECODE_MAX_LEN, "cpu"),
+                     timeout=3000)
+    got = torch.cat([r["logits"] for r in ranks], dim=-1).float()
+    diff = got - ref
+    specs = cache_specs(caches)
+    cache_rel, cache_abs = 0.0, 0.0
+    for rank, out in enumerate(ranks):
+        want = tree_leaves(shard_params(caches, specs, rank, tp))
+        for a, b in zip(tree_leaves(out["caches"]), want):
+            d = a.float() - b.float()
+            cache_rel = max(cache_rel, (d.norm() / b.float().norm()).item())
+            cache_abs = max(cache_abs, d.abs().max().item())
+    return {"dtype": cfg.dtype, "rel_rms_err": (diff.norm() / ref.norm()).item(),
+            "max_abs_err": diff.abs().max().item(),
+            "worst_step_rel_rms_err": max((d.norm() / r.norm()).item()
+                                          for d, r in zip(diff, ref)),
+            "cache_rel_rms_err": cache_rel, "cache_max_abs_err": cache_abs,
+            "ref_rms": ref.pow(2).mean().sqrt().item(),
+            "tp_ms_per_step": [r["ms"] for r in ranks],
+            "tp_seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=2)
@@ -58,17 +103,24 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (a rehearsal of the script)")
+    ap.add_argument("--decode", action="store_true",
+                    help="compare the serving step (decode_step) instead")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args()
     cfg = get_config("llama3_8b", smoke=args.smoke)
     if args.smoke:  # the smoke config's 2 KV heads, padded like CONFIG's 8
         cfg = dataclasses.replace(cfg, n_kv_heads_padded=args.tp)
     cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator().manual_seed(args.seed)
-    tokens = torch.randint(0, cfg.vocab, (1, args.seq), generator=gen)
+    shape = (args.batch, args.prompt + args.steps) if args.decode else (1, args.seq)
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen)
     for dtype in ("bfloat16", "float32"):
-        row = compare(dataclasses.replace(cfg, dtype=dtype), args.tp, args.seed + 1, tokens)
+        row = (compare_decode if args.decode else compare)(
+            dataclasses.replace(cfg, dtype=dtype), args.tp, args.seed + 1, tokens)
         print(json.dumps({"arch": cfg.name, "layers": args.layers, "tp": args.tp,
-                          "tokens": [1, args.seq], **row}), flush=True)
+                          "decode": args.decode, "tokens": list(shape), **row}), flush=True)
     return 0
 
 

@@ -18,7 +18,7 @@ from ..relations import DUP, PARTIAL, SHARD, Fact
 # template fingerprints are pure functions of (variant, shapes, dtype, size):
 # cache process-wide, like the old Propagator class attribute did
 _vp_embed_templates: dict = {}
-# axis size -> whether the template's generator computes the lookup
+# (axis size, partial) -> whether the template's generator computes the lookup
 _generator_checked: dict = {}
 
 
@@ -170,35 +170,42 @@ def _is_nan_const(g, nid: int) -> bool:
 
 def _vp_embed_template_ok(prop, nids, table_shape, ids_shape, dtype,
                           partial: bool = False) -> bool:
-    if partial:  # the sequence-parallel variant is not ported yet
-        return False
-    if not _generator_ok(prop.size):
+    if not _generator_ok(prop.size, partial):
         return False
     key = (partial, tuple(table_shape), tuple(ids_shape), dtype, prop.size)
     if key not in _vp_embed_templates:
-        from repro_torch.parallel.collectives import vp_embed
+        import dataclasses
+
+        from repro_torch.parallel import collectives
         from repro_torch.parallel.sharding import P
 
         from ..trace import DTYPE_NAMES, ShapeDtype, trace_sharded
 
+        gen = collectives.vp_embed_sp if partial else collectives.vp_embed
         torch_dtype = {v: k for k, v in DTYPE_NAMES.items()}
         tbl = ShapeDtype((table_shape[0] * prop.size, table_shape[1]),
                          torch_dtype[dtype])
         idv = ShapeDtype(tuple(ids_shape), torch_dtype["int64"])
         gt, _, _ = trace_sharded(
-            lambda ctx, t, i: vp_embed(t, i, ctx), prop.size,
-            (P(prop.axis, None), P()), tbl, idv, axis=prop.axis)
-        body = [n.id for n in gt if n.op not in ("input", "param", "const")]
-        # the template's reduction is checked too: one all_reduce, a sum
-        # over the region's axis, and it is the template's output
+            lambda ctx, t, i: gen(t, i, dataclasses.replace(ctx, sp=partial)),
+            prop.size, (P(prop.axis, None), P()), tbl, idv, axis=prop.axis)
+        # the template's reduction is checked too: one collective, a sum
+        # over the region's axis, and it is the template's output; an
+        # all_reduce inside the region, or under SP a reduce_scatter along
+        # the sequence (dim 1), outside it
         reduces = [n for n in gt if n.op in ("all_reduce", "all_gather",
                                              "reduce_scatter")]
-        if not (len(reduces) == 1 and reduces[0].op == "all_reduce"
-                and reduces[0].param("reduce_op") == "add"
-                and tuple(reduces[0].param("axes")) == (prop.axis,)
-                and list(gt.outputs) == [reduces[0].id]):
+        r = reduces[0] if len(reduces) == 1 else None
+        if r is None or not (
+                r.op == ("reduce_scatter" if partial else "all_reduce")
+                and r.param("reduce_op") == "add"
+                and tuple(r.param("axes")) == (prop.axis,)
+                and (not partial or r.param("scatter_dimension") == 1)
+                and list(gt.outputs) == [r.id]):
             _vp_embed_templates[key] = None
         else:
+            body = [n.id for n in gt if n.op not in ("input", "param", "const")
+                    and not (partial and n.id == r.id)]
             _vp_embed_templates[key] = gt.fingerprint(sorted(body),
                                                       normalize_slices=True)
     if _vp_embed_templates[key] is None:
@@ -211,8 +218,9 @@ def _vp_embed_template_ok(prop, nids, table_shape, ids_shape, dtype,
 
 
 class _RankCtx:
-    """One rank of ``vp_embed``'s context, in one process: the rank tensor,
-    and a ``psum_tp`` that returns what it was asked to sum, wrapped, for
+    """One rank of the template's context, in one process: the rank tensor,
+    and a ``psum_tp`` (``vp_embed``) and an ``sp_enter`` (``vp_embed_sp``)
+    that return what they were asked to sum, wrapped with how, for
     ``_generator_ok`` to add up over ranks.  The template may call no other
     method of the context."""
 
@@ -225,39 +233,47 @@ class _RankCtx:
         return torch.tensor(self.rank)
 
     def psum_tp(self, x):
-        return _Summed(x)
+        return _Summed(x, "psum")
+
+    def sp_enter(self, x, seq_axis: int = 1):
+        return _Summed(x, f"scatter{seq_axis}")
 
 
 class _Summed:
-    def __init__(self, x):
+    def __init__(self, x, how: str):
         self.x = x
+        self.how = how
 
 
-def _generator_ok(size: int) -> bool:
+def _generator_ok(size: int, partial: bool = False) -> bool:
     """The trusted generator is checked, not assumed: on a small table
-    (``V_loc`` = 3 rows a rank, values of both signs), ``vp_embed`` run on
-    every rank with its collective emulated over ranks equals the plain
-    lookup for every id in range, and is zero past it.  A reduction other
-    than the sum, or work after it, fails the check."""
-    if size not in _generator_checked:
+    (``V_loc`` = 3 rows a rank, values of both signs), ``vp_embed`` (or,
+    ``partial``, ``vp_embed_sp``) run on every rank with its collective
+    emulated over ranks equals the plain lookup for every id in range, and
+    is zero past it.  A reduction other than the sum (under SP: other than
+    the reduce_scatter along the sequence), or work after it, fails the
+    check."""
+    if (size, partial) not in _generator_checked:
         import torch
 
-        from repro_torch.parallel.collectives import vp_embed
+        from repro_torch.parallel import collectives
 
+        gen = collectives.vp_embed_sp if partial else collectives.vp_embed
         V_loc, V = 3, 3 * size
         table = torch.arange(1, V * 2 + 1, dtype=torch.float32).reshape(V, 2)
         table = table * torch.tensor([1.0, -1.0])
         ids = torch.arange(-2, V + 2).reshape(1, -1)
         try:
-            outs = [vp_embed(table[r * V_loc:(r + 1) * V_loc], ids, _RankCtx(r))
+            outs = [gen(table[r * V_loc:(r + 1) * V_loc], ids, _RankCtx(r))
                     for r in range(size)]
         except (AttributeError, TypeError):  # another collective, or work after it
             outs = []
-        ok = bool(outs) and all(isinstance(o, _Summed) for o in outs)
+        how = "scatter1" if partial else "psum"
+        ok = bool(outs) and all(isinstance(o, _Summed) and o.how == how for o in outs)
         if ok:
             total = sum(o.x for o in outs)
             valid = ((ids >= 0) & (ids < V))[..., None]
             want = torch.where(valid, table[ids.clamp(0, V - 1)], 0.0)
             ok = torch.equal(total, want)
-        _generator_checked[size] = ok
-    return _generator_checked[size]
+        _generator_checked[(size, partial)] = ok
+    return _generator_checked[(size, partial)]

@@ -7,14 +7,19 @@ trace on a laptop.  This module lowers that graph into the op vocabulary of
 so the same rules verify both:
 
 * ATen ops with a 1:1 counterpart are renamed (``mm``/``bmm`` -> ``dot``,
-  ``view``/``unsqueeze`` -> ``reshape``, ``permute`` -> ``transpose``,
-  ``expand`` -> ``broadcast``, ``_to_copy`` -> ``convert``, ``cat`` ->
-  ``concat``, ``index`` -> ``gather``, ...);
+  ``view`` -> ``reshape``, ``unsqueeze`` -> ``broadcast`` (jnp's
+  ``expand_dims``), ``permute`` -> ``transpose``, ``expand`` ->
+  ``broadcast``, ``_to_copy`` -> ``convert``, ``cat`` -> ``concat``,
+  ``index`` -> ``gather``, ...);
 * composite ops are decomposed the way ``jax.numpy`` lowers them
   (``mean`` -> ``reduce_sum`` + ``div``, ``silu`` -> ``logistic`` + ``mul``,
-  ``clamp`` -> ``max`` + ``min``, ``_softmax``, ``addmm``, ``triu``/``tril``),
-  with jnp's explicit rank-promoting broadcasts and ``where`` as
-  ``select(pred, on_false, on_true)``;
+  ``clamp`` -> ``max`` + ``min``, ``_softmax``, ``addmm``, ``triu``/``tril``,
+  ``softplus``, ``constant_pad_nd``), with jnp's explicit rank-promoting
+  broadcasts and ``where`` as ``select(pred, on_false, on_true)``; ATen's
+  spellings of one jnp op are folded back (``einsum`` and a matmul by a
+  matrix as ``dot_general``s, ``c / x``, chains of ``unsqueeze``);
+* the program is traced functionalized: in-place writes to its inputs
+  (a serving step's caches) become outputs;
 * Python scalars become hash-consed ``const`` leaves; scalar int
   arithmetic on constants folds at trace time;
 * the functional collectives become ``all_reduce``/``all_gather``/
@@ -34,6 +39,7 @@ congruent opaque node).
 from __future__ import annotations
 
 import hashlib
+import itertools
 import operator
 import os
 import re
@@ -47,6 +53,7 @@ import torch
 import torch.fx.traceback as fx_traceback
 from torch.overrides import TorchFunctionMode
 
+from repro_torch.models.modules import einsum_f32
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 from .ir import Graph
@@ -117,35 +124,57 @@ _PLUMBING = {os.path.abspath(__file__), os.path.join(_PKG_DIR, "tree.py"),
 def _user_src(frame) -> str:
     while frame is not None:
         f = frame.f_code.co_filename
-        if not (f.startswith((_TORCH_DIR, _STDLIB_DIR, "<")) or f in _PLUMBING):
+        if not (f.startswith((_TORCH_DIR, _STDLIB_DIR, "<")) or f in _PLUMBING
+                or frame.f_code is einsum_f32.__code__):  # its caller's line
             return f"{f.rsplit('/', 1)[-1]}:{frame.f_lineno}"
         frame = frame.f_back
     return ""
 
 
+# functionalize cannot take ATen's in-place operator ops (``__iand__``'s
+# schema returns an alias of ``self``); the named in-place ops it can
+_INPLACE_OPERATORS = {
+    getattr(torch.Tensor, f"__i{op}__"): getattr(torch.Tensor, named)
+    for op, named in (("and", "bitwise_and_"), ("or", "bitwise_or_"),
+                      ("xor", "bitwise_xor_"), ("lshift", "bitwise_left_shift_"),
+                      ("rshift", "bitwise_right_shift_"))}
+
+
+_MATMUL = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+
 class _SourceMode(TorchFunctionMode):
     """Puts the caller's ``file.py:line`` on every fx node a torch call
     creates (as the node's ``stack_trace``, which fx copies under
-    ``preserve_node_meta()``), and keeps a two-operand ``torch.einsum`` one
-    node: ATen would lower it to permutes, views and a ``bmm`` over merged
-    batch dims, where ``jnp.einsum`` gives one ``dot_general`` (a sharded
-    head dim merged with the batch dim is no split/merge layout)."""
+    ``preserve_node_meta()``), and lowers ``torch.einsum`` as ``jnp.einsum``
+    does: ATen would lower it to permutes, views and a ``bmm`` over merged
+    batch dims, where ``jnp.einsum`` gives one ``dot_general`` per pair of
+    operands (a sharded head dim merged with the batch dim is no split/merge
+    layout)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         fx_traceback.set_stack_trace([_user_src(sys._getframe(1))])
-        if func is torch.einsum and not kwargs:
-            out = _einsum_as_dot_general(*args)
+        func = _INPLACE_OPERATORS.get(func, func)
+        if func in (torch.einsum, einsum_f32) and not kwargs:
+            out = _einsum_as_dot_general(*args, f32=func is einsum_f32)
             if out is not None:
                 return out
+        if func in _MATMUL and not kwargs and args[0].ndim > 2 and args[1].ndim == 2:
+            # jnp.matmul: one dot_general over the last dim, where ATen
+            # folds the leading dims into rows (reshape, mm, reshape)
+            return _dot_general(args[0], args[1], [args[0].ndim - 1], [0], [], [], False)
         return func(*args, **(kwargs or {}))
 
 
 @torch.library.custom_op("repro_torch::dot_general", mutates_args=())
 def _dot_general(lhs: torch.Tensor, rhs: torch.Tensor, lhs_contract: list[int],
                  rhs_contract: list[int], lhs_batch: list[int],
-                 rhs_batch: list[int]) -> torch.Tensor:
+                 rhs_batch: list[int], f32: bool) -> torch.Tensor:
     """``lax.dot_general``: output dims are the batch dims, then the free
-    dims of ``lhs``, then those of ``rhs``."""
+    dims of ``lhs``, then those of ``rhs``; ``f32``: accumulated and
+    returned in float32 (``preferred_element_type``)."""
+    if f32:
+        lhs, rhs = lhs.float(), rhs.float()
     letters = iter("abcdefghijklmnopqrstuvwxyz")
     lhs_l = [next(letters) for _ in range(lhs.ndim)]
     rhs_l = [next(letters) for _ in range(rhs.ndim)]
@@ -159,35 +188,138 @@ def _dot_general(lhs: torch.Tensor, rhs: torch.Tensor, lhs_contract: list[int],
 
 
 @_dot_general.register_fake
-def _dot_general_fake(lhs, rhs, lhs_contract, rhs_contract, lhs_batch, rhs_batch):
+def _dot_general_fake(lhs, rhs, lhs_contract, rhs_contract, lhs_batch, rhs_batch, f32):
     shape = ([lhs.shape[i] for i in lhs_batch]
              + [s for i, s in enumerate(lhs.shape) if i not in lhs_contract + lhs_batch]
              + [s for j, s in enumerate(rhs.shape) if j not in rhs_contract + rhs_batch])
-    return lhs.new_empty(shape, dtype=torch.promote_types(lhs.dtype, rhs.dtype))
+    return lhs.new_empty(shape, dtype=torch.float32 if f32
+                         else torch.promote_types(lhs.dtype, rhs.dtype))
 
 
-def _einsum_as_dot_general(equation, *operands):
-    """``torch.einsum`` over two operands without ellipsis or repeated or
-    summed-out letters, as ``dot_general`` + ``permute``; None otherwise."""
+def _einsum_path(inputs: list[str], output: str, sizes: dict) -> list[tuple]:
+    """The pairwise contraction order ``jnp.einsum`` takes by default:
+    opt_einsum's ``optimal`` search (its choice for up to four operands),
+    with opt_einsum's flop count, tie-breaking and pair-cost cache (keyed
+    on the two operands alone, so a pair costed once is not re-costed when
+    other operands have gone), in linear form."""
+    if len(inputs) <= 2:
+        return [tuple(range(len(inputs)))]
+    out = frozenset(output)
+    best = {"flops": float("inf"), "ssa": (tuple(range(len(inputs))),)}
+    cache: dict = {}
+
+    def search(path, remaining, ins, cost):
+        if len(remaining) == 1:
+            best["flops"], best["ssa"] = cost, path
+            return
+        for i, j in itertools.combinations(remaining, 2):
+            i, j = min(i, j), max(i, j)
+            key = (ins[i], ins[j])
+            if key not in cache:
+                keep = frozenset.union(out, *(ins[r] for r in remaining - {i, j}))
+                either = ins[i] | ins[j]
+                inner = bool((ins[i] & ins[j]) - keep)
+                cache[key] = (either & keep,
+                              int(np.prod([sizes[c] for c in either])) * (2 if inner else 1))
+            k12, flops = cache[key]
+            if cost + flops < best["flops"]:
+                search(path + ((i, j),), remaining - {i, j} | {len(ins)}, ins + (k12,),
+                       cost + flops)
+
+    search((), set(range(len(inputs))), tuple(frozenset(t) for t in inputs), 0)
+    ids, linear, ssa = list(range(len(inputs))), [], len(inputs)
+    for step in best["ssa"]:
+        con = sorted(ids.index(k) for k in step)
+        for k in reversed(con):
+            ids.pop(k)
+        ids.append(ssa)
+        linear.append(tuple(con))
+        ssa += 1
+    return linear
+
+
+def _einsum_as_dot_general(equation, *operands, f32: bool = False):
+    """``torch.einsum`` without ellipsis or repeated letters, lowered as
+    ``jnp.einsum`` lowers it: pairwise contractions in opt_einsum's order,
+    each a ``dot_general`` (operands swapped where that saves a transpose)
+    after summing out letters unique to one side and dropping unit dims the
+    other side broadcasts, then one ``transpose`` where the names are out of
+    order; None for what this does not cover.  ``f32``: two operands of one
+    type, ``preferred_element_type=float32``."""
     if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
         operands = tuple(operands[0])
-    if len(operands) != 2 or "..." in equation or "->" not in equation:
+    if "..." in equation or "->" not in equation:
         return None
-    ins, out = equation.replace(" ", "").split("->")
-    lhs, rhs = ins.split(",")
-    if any(len(set(t)) != len(t) for t in (lhs, rhs, out)):
+    ins, output = equation.replace(" ", "").split("->")
+    names = ins.split(",")
+    if len(names) != len(operands) or any(
+            len(set(t)) != len(t) for t in names + [output]):
         return None
-    if any(c not in lhs and c not in rhs for c in out) or any(
-            c not in out and c not in (lhs if c in rhs else rhs) for c in lhs + rhs):
-        return None  # a letter summed out of one operand alone
-    batch = [c for c in lhs if c in rhs and c in out]
-    contract = [c for c in lhs if c in rhs and c not in out]
-    res = _dot_general(operands[0], operands[1], [lhs.index(c) for c in contract],
-                       [rhs.index(c) for c in contract], [lhs.index(c) for c in batch],
-                       [rhs.index(c) for c in batch])
-    order = batch + [c for c in lhs if c not in rhs] + [c for c in rhs if c not in lhs]
-    perm = [order.index(c) for c in out]
-    return res if perm == sorted(perm) else res.permute(perm)
+    sizes = {c: t.shape[i] for n, t in zip(names, operands) for i, c in enumerate(n)}
+    out_dtype = _promote([t.dtype for t in operands])
+    if f32:
+        if len(operands) != 2 or operands[0].dtype != operands[1].dtype:
+            return None
+        out_dtype = torch.float32
+    ops, path = list(operands), _einsum_path(names, output, sizes)
+    out_set = frozenset(output)
+    for step, inds in enumerate(path):
+        inds = sorted(inds, reverse=True)
+        picked = [names.pop(k) for k in inds]
+        remain = out_set.union(*map(frozenset, names))
+        contract = frozenset("".join(picked))
+        kept = remain & contract
+        result = (output if step == len(path) - 1
+                  else "".join(sorted(kept, key="".join(picked).find)))
+        removed = sorted(contract - kept)
+        if len(inds) == 1:
+            x, xn = _sum_out(ops.pop(inds[0]), picked[0], removed, out_dtype)
+        else:
+            lhs, rhs = ops.pop(inds[0]), ops.pop(inds[1])
+            x, xn = _contract_pair(lhs, picked[0], rhs, picked[1], removed, result,
+                                   out_dtype, f32)
+        if xn != result:
+            x = x.permute([xn.index(c) for c in result])
+        ops.append(x)
+        names.append(result)
+    return ops[0].to(out_dtype)
+
+
+def _sum_out(x, xn: str, letters, dtype):
+    """``jnp.einsum``'s ``sum_uniques``: one ``reduce_sum`` over ``letters``."""
+    axes = [xn.index(c) for c in letters if c in xn]
+    if not axes:
+        return x, xn
+    if torch.promote_types(x.dtype, dtype) != x.dtype:
+        x = x.to(dtype)
+    return x.sum(axes), "".join(c for c in xn if c not in letters)
+
+
+def _contract_pair(lhs, ln: str, rhs, rn: str, contracted, result: str, dtype,
+                   f32: bool):
+    def drop_units(x, xn, other, on):
+        keep = [x.shape[i] != 1 or c not in on or other.shape[on.index(c)] == 1
+                for i, c in enumerate(xn)]
+        if all(keep):
+            return x, xn
+        return (x.reshape([s for s, k in zip(x.shape, keep) if k]),
+                "".join(c for c, k in zip(xn, keep) if k))
+
+    lhs, ln = drop_units(lhs, ln, rhs, rn)
+    rhs, rn = drop_units(rhs, rn, lhs, ln)
+    lhs, ln = _sum_out(lhs, ln, [c for c in contracted if c not in rn], dtype)
+    rhs, rn = _sum_out(rhs, rn, [c for c in contracted if c not in ln], dtype)
+    contracted = [c for c in contracted if c in ln and c in rn]
+    batch = [c for c in result if c in ln and c in rn]
+    lc, rc = [ln.index(c) for c in contracted], [rn.index(c) for c in contracted]
+    lb, rb = [ln.index(c) for c in batch], [rn.index(c) for c in batch]
+    gone = set(batch) | set(contracted)
+    rest_l = "".join(c for c in ln if c not in gone)
+    rest_r = "".join(c for c in rn if c not in gone)
+    names = "".join(batch) + rest_r + rest_l
+    if names == result:  # rhs first: no transpose needed
+        return _dot_general(rhs, lhs, rc, lc, rb, lb, f32), names
+    return _dot_general(lhs, rhs, lc, rc, lb, rb, f32), "".join(batch) + rest_l + rest_r
 
 
 @contextmanager
@@ -232,7 +364,7 @@ _REDUCE = {_A.sum: "reduce_sum", _A.amax: "reduce_max", _A.amin: "reduce_min",
            _A.prod: "reduce_prod", _A.any: "reduce_or", _A.all: "reduce_and"}
 _IDENTITY = {_A.clone, _A.contiguous, _A.alias, _A.detach, _A.lift_fresh,
              _A.lift_fresh_copy}
-_RESHAPE = {_A.view, _A._unsafe_view, _A.reshape, _A.unsqueeze, _A.squeeze,
+_RESHAPE = {_A.view, _A._unsafe_view, _A.reshape, _A.squeeze,
             _A.flatten, _A.unflatten}
 _FILL = {_A.full: None, _A.zeros: 0, _A.ones: 1, _A.new_full: None, _A.new_zeros: 0,
          _A.new_ones: 1, _A.full_like: None, _A.zeros_like: 0, _A.ones_like: 1,
@@ -302,6 +434,17 @@ class Tracer:
         return self.add_const(np.asarray(value, dtype=_NP_DTYPES.get(dtype, np.float64)),
                               dtype_name(dtype))
 
+    def weak_scalar(self, value, dtype: torch.dtype) -> int:
+        """A Python scalar as ``jnp.pad`` takes it: a weakly typed constant
+        (float32, int32 or bool) and a ``convert_element_type`` to
+        ``dtype``, emitted even where the types agree (the weak type
+        goes)."""
+        weak = (torch.bool if isinstance(value, bool)
+                else torch.int32 if isinstance(value, int) else torch.float32)
+        name = dtype_name(dtype)
+        return self.emit("convert", [self.scalar(value, weak)], (), name,
+                         {"new_dtype": name})
+
     # -- emission -------------------------------------------------------------
     def emit(self, op: str, inputs, shape, dtype, params: Optional[dict] = None) -> int:
         dt = dtype if isinstance(dtype, str) else dtype_name(dtype)
@@ -359,9 +502,12 @@ class Tracer:
             return nid
         return self.emit("reshape", [nid], shape, n.dtype, {"new_sizes": tuple(shape)})
 
-    def slice(self, nid: int, dim: int, start: int, stop: int, step: int = 1) -> int:
+    def slice(self, nid: int, dim: int, start: int, stop: int, step: int = 1,
+              whole: bool = False) -> int:
+        """``lax.slice`` along ``dim``; a slice of the whole dim is dropped
+        unless ``whole`` (``lax.index_in_dim`` emits it)."""
         n = self.g[nid]
-        if start == 0 and stop == n.shape[dim] and step == 1:
+        if start == 0 and stop == n.shape[dim] and step == 1 and not whole:
             return nid
         st = [0] * len(n.shape)
         lim = list(n.shape)
@@ -417,15 +563,21 @@ class Tracer:
         shape = tuple(val.shape) if isinstance(val, torch.Tensor) else ()
         dtype = val.dtype if isinstance(val, torch.Tensor) else None
         if packet in self._c10d:
-            return self._collective(self._c10d[packet], args, shape, dtype)
+            return self._collective(self._c10d[packet], args, shape, dtype, node.meta)
         if packet in _IDENTITY:
             return args[0]
         if packet in _RESHAPE:
             return self.reshape(args[0], shape)
+        if packet is _A.unsqueeze:  # x[:, None]: lax.expand_dims
+            new = node.meta.get("inserted", [args[1] % len(shape)])
+            return self.emit("broadcast", [args[0]], shape, dtype,
+                             {"shape": shape, "broadcast_dimensions":
+                              tuple(i for i in range(len(shape)) if i not in new)})
         if packet in _UNARY:
             return self.emit(_UNARY[packet], [self.convert(args[0], dtype)], shape, dtype)
-        if packet is _A.reciprocal:
-            return self.emit("div", [self.scalar(1, dtype), args[0]], shape, dtype)
+        if packet is _A.reciprocal:  # c / x: see _fold_jnp_forms
+            return self.emit("div", [self.scalar(node.meta.get("numerator", 1), dtype),
+                                     args[0]], shape, dtype)
         if packet is _A.rsub:  # rsub(x, c) = c - x
             a = self.operand(args[0], dtype)
             b = self.operand(args[1], dtype)
@@ -453,6 +605,18 @@ class Tracer:
             return self.emit("mul", [x, lg], shape, dtype)
         if packet is _A.relu:
             return self.emit("max", [args[0], self.scalar(0, dtype)], shape, dtype)
+        if packet is _A.index_copy and self.g[args[2]].shape in ((), (1,)):
+            return self._index_copy(args, shape, dtype)
+        if packet is _A.copy:  # the functional copy_: src cast into dst's shape
+            return self.broadcast_to(self.convert(args[1], dtype), shape)
+        if packet is _A.softplus and tuple(args[1:]) in ((), (1, 20)):
+            return self._softplus(args[0], shape, dtype)
+        if packet is _A.constant_pad_nd:
+            return self._pad(args, shape, dtype)
+        if packet is _A.cumsum:
+            x = self.convert(args[0], dtype)
+            return self.emit("cumsum", [x], shape, dtype,
+                             {"axis": args[1] % len(shape), "reverse": False})
         if packet is _A.clamp:  # jnp.clip: max(lo, x), then min(hi, .)
             x = args[0]
             lo = args[1] if len(args) > 1 else kwargs.get("min")
@@ -499,7 +663,7 @@ class Tracer:
             x = self.g[args[0]]
             dim = args[1] % len(x.shape)
             i = args[2] % x.shape[dim]
-            return self.reshape(self.slice(args[0], dim, i, i + 1), shape)
+            return self.reshape(self.slice(args[0], dim, i, i + 1, whole=True), shape)
         if packet in (_A.split, _A.split_with_sizes, _A.chunk, _A.unbind):
             return self._split(packet, args, node)
         if packet is _A.cat:
@@ -509,10 +673,21 @@ class Tracer:
             dim = (args[1] if len(args) > 1 else 0) % len(shape)
             return self.emit("concat", [self.convert(t, dtype) for t in ts], shape, dtype,
                              {"dimension": dim})
+        if packet is _A.stack:  # jnp.stack: expand_dims each, then concatenate
+            dim = (args[1] if len(args) > 1 else 0) % len(shape)
+            unit = shape[:dim] + (1,) + shape[dim + 1:]
+            kept = tuple(i for i in range(len(shape)) if i != dim)
+            ts = [self.emit("broadcast", [self.convert(t, dtype)], unit, dtype,
+                            {"shape": unit, "broadcast_dimensions": kept})
+                  for t in args[0]]
+            if len(ts) == 1:
+                return ts[0]
+            return self.emit("concat", ts, shape, dtype, {"dimension": dim})
         if packet is getattr(torch.ops.repro_torch, "dot_general", None):
             lc, rc, lb, rb = (tuple(x) for x in args[2:6])
-            return self.emit("dot", [self.convert(args[0], dtype),
-                                     self.convert(args[1], dtype)], shape, dtype,
+            ins = (args[:2] if args[6]  # preferred_element_type=float32
+                   else [self.convert(a, dtype) for a in args[:2]])
+            return self.emit("dot", ins, shape, dtype,
                              {"dimension_numbers": ((lc, rc), (lb, rb))})
         if packet is _A.mm:
             return self.emit("dot", args[:2], shape, dtype,
@@ -585,7 +760,45 @@ class Tracer:
             b = self.emit("mul", [b, self.scalar(alpha, dtype)], self.g[b].shape, dtype)
         return self.emit(op, [a, b], shape, dtype)
 
-    def _collective(self, name, args, shape, dtype):
+    def _index_copy(self, args, shape, dtype):
+        """``index_copy`` of one index: ``lax.dynamic_update_slice_in_dim``
+        at that index (the write index comes in already wrapped and
+        clamped; a scalar where ``_fold_written_views`` found one)."""
+        x, dim, idx, src = args[0], args[1] % len(shape), args[2], args[3]
+        starts = [self.scalar(0, torch.int64)] * len(shape)
+        starts[dim] = self.reshape(idx, ())
+        return self.emit("dynamic_update_slice", [x, self.convert(src, dtype)] + starts,
+                         shape, dtype)
+
+    def _softplus(self, x, shape, dtype):
+        """``jax.nn.softplus``: ``logaddexp(x, 0)``, whose jnp lowering is
+        ``select(isnan(x - 0), max(x, 0) + log1p(exp(-|x - 0|)), x + 0)``
+        (torch's default threshold of 20 only shortcuts the same value)."""
+        zero = self.scalar(0.0, dtype)
+        amax = self.emit("max", [x, zero], shape, dtype)
+        delta = self.emit("sub", [x, zero], shape, dtype)
+        isnan = self.emit("ne", [delta, delta], shape, torch.bool)
+        both = self.emit("add", [x, zero], shape, dtype)
+        t = self.emit("abs", [delta], shape, dtype)
+        for op in ("neg", "exp", "log1p"):
+            t = self.emit(op, [t], shape, dtype)
+        out = self.emit("add", [amax, t], shape, dtype)
+        return self.emit("select", [isnan, out, both], shape, dtype)
+
+    def _pad(self, args, shape, dtype):
+        """``jnp.pad`` with a constant: one ``pad`` with a (low, high,
+        interior) entry per dim; torch lists (low, high) from the last dim."""
+        x = self.g[args[0]]
+        flat = list(args[1])
+        config = [(0, 0, 0)] * len(x.shape)
+        for i in range(len(flat) // 2):
+            config[len(x.shape) - 1 - i] = (flat[2 * i], flat[2 * i + 1], 0)
+        value = args[2] if len(args) > 2 and args[2] is not None else 0
+        value = int(value) if value == 0 else value  # jnp.pad's constant_values=0
+        return self.emit("pad", [args[0], self.weak_scalar(value, dtype)], shape, dtype,
+                         {"padding_config": tuple(config)})
+
+    def _collective(self, name, args, shape, dtype, meta):
         if name == "wait_tensor":
             return args[0]
         params = {"axes": (self.axis,), "groups": "full"}
@@ -593,10 +806,11 @@ class Tracer:
             params["reduce_op"] = _REDUCE_OPS[args[1]]
             return self.emit("all_reduce", [args[0]], shape, dtype, params)
         if name == "all_gather_into_tensor":
-            params.update(all_gather_dimension=0, tiled=True)
+            params.update(all_gather_dimension=meta.get("gather_dim", 0), tiled=True)
             return self.emit("all_gather", [args[0]], shape, dtype, params)
         if name == "reduce_scatter_tensor":
-            params.update(scatter_dimension=0, tiled=True, reduce_op="add")
+            params.update(scatter_dimension=meta.get("scatter_dim", 0), tiled=True,
+                          reduce_op=_REDUCE_OPS[args[1]])
             return self.emit("reduce_scatter", [args[0]], shape, dtype, params)
         params.update(split_axis=0, concat_axis=0, tiled=True)
         return self.emit("all_to_all", [args[0]], shape, dtype, params)
@@ -731,10 +945,186 @@ def _lower(gm, name: str, layer_tag_fn, axis: str, rank_slot: bool):
 
 
 def _make_fx(flat_fn, fakes):
+    """``flat_fn`` traced functionalized: a program that writes its inputs
+    in place (a serving step and its caches) returns what it writes, and a
+    pure program traces as it would unfunctionalized."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     with fx_traceback.preserve_node_meta(), _SourceMode():
-        return make_fx(flat_fn, tracing_mode="fake")(*fakes)
+        gm = make_fx(torch.func.functionalize(flat_fn), tracing_mode="fake")(*fakes)
+    _fold_collective_dims(gm)
+    _fold_written_views(gm)
+    _fold_jnp_forms(gm)
+    return gm
+
+
+def _fold_jnp_forms(gm) -> None:
+    """ATen spellings of what ``jax.numpy`` traces as one op:
+
+    * ``c / x`` for a Python number ``c`` is ``reciprocal(x) * c`` in ATen
+      and one ``div(c, x)`` in jnp: the reciprocal takes ``c`` (its meta
+      ``numerator``) and the ``mul`` goes;
+    * ``x[:, None, None]`` is one ``unsqueeze`` per new dim in ATen and one
+      ``lax.expand_dims`` (a ``broadcast_in_dim``) in jnp: the last
+      unsqueeze of a chain takes the chain's input and every inserted dim
+      (its meta ``inserted``).
+    """
+    graph = gm.graph
+    for node in list(graph.nodes):
+        if (node.target is _A.mul.Tensor and isinstance(node.args[1], (int, float))
+                and isinstance(node.args[0], torch.fx.Node)
+                and node.args[0].target is _A.reciprocal.default
+                and len(node.args[0].users) == 1
+                and node.args[0].meta["val"].dtype == node.meta["val"].dtype):
+            recip = node.args[0]
+            recip.meta["numerator"] = node.args[1]
+            node.replace_all_uses_with(recip)
+            graph.erase_node(node)
+        elif node.target is _A.unsqueeze.default:
+            inner = node.args[0]
+            d = node.args[1] % node.meta["val"].dim()
+            if inner.target is _A.unsqueeze.default and len(inner.users) == 1:
+                dims = inner.meta.get("inserted", [inner.args[1] % inner.meta["val"].dim()])
+                node.meta["inserted"] = sorted([d] + [i + (i >= d) for i in dims])
+                node.args = (inner.args[0], d)
+    graph.eliminate_dead_code()
+    gm.recompile()
+
+
+def _chunks_of(parts) -> Optional[tuple]:
+    """``(x, dim)`` when ``parts`` are the pieces of one ``split`` of ``x``
+    along ``dim``, all of them, in order; None otherwise."""
+    if not parts or any(p.target is not operator.getitem for p in parts):
+        return None
+    split = parts[0].args[0]
+    if (split.target is not _A.split.Tensor or len(split.users) != len(parts)
+            or [p.args for p in parts] != [(split, i) for i in range(len(parts))]):
+        return None
+    x = split.args[0]
+    dim = split.args[2] if len(split.args) > 2 else 0
+    return x, dim % x.meta["val"].dim()
+
+
+def _fold_collective_dims(gm) -> None:
+    """A functional reduce_scatter or all_gather along a dim other than 0
+    is traced as a dim-0 collective between a ``split`` and a ``cat``
+    (``ParallelCtx.scatter_tp``/``gather_tp``); fold each back into one
+    collective along its dim, as ``lax.psum_scatter`` and ``lax.all_gather``
+    trace (the dim goes on the node's meta)."""
+    graph = gm.graph
+    ns = torch.ops._c10d_functional
+    for node in list(graph.nodes):
+        if node.target is ns.reduce_scatter_tensor.default:
+            cat = node.args[0]
+            if cat.target is _A.cat.default and (len(cat.args) < 2 or cat.args[1] == 0):
+                found = _chunks_of(cat.args[0])
+                if found is not None and len(cat.args[0]) == node.args[2]:
+                    node.args = (found[0],) + tuple(node.args[1:])
+                    node.meta["scatter_dim"] = found[1]
+        elif node.target is _A.cat.default and len(node.args) > 1:
+            found = _chunks_of(node.args[0])
+            if found is None or found[1] != 0:
+                continue
+            wait = found[0]
+            gather = wait.args[0] if wait.target is ns.wait_tensor.default else None
+            if (gather is None or gather.target is not ns.all_gather_into_tensor.default
+                    or len(node.args[0]) != gather.args[1]
+                    or len(wait.users) != 1 or len(gather.users) != 1):
+                continue
+            gather.meta["gather_dim"] = node.args[1] % node.meta["val"].dim()
+            gather.meta["val"] = wait.meta["val"] = node.meta["val"]
+            node.replace_all_uses_with(wait)
+    graph.eliminate_dead_code()
+    gm.recompile()
+
+
+def _fold_written_views(gm) -> None:
+    """Turn the in-place writes of a functionalized step into the values
+    they write, as a program that returns updated copies computes them:
+
+    * a read ``select(select_scatter(b, s, d, i), d, j)`` is ``s`` when
+      ``j == i`` and ``select(b, d, j)`` otherwise;
+    * an output that writes every slot of a stacked input along dim 0
+      (``select_scatter`` chains) is ``stack`` of the slot values, as
+      ``jnp.stack`` of the per-layer caches;
+    * the epilogue ``copy_`` of a written value into its input is dropped:
+      the value is an output of the trace;
+    * an ``index_copy`` at ``i[None]`` for a scalar ``i`` takes ``i``, the
+      start ``dynamic_update_slice`` takes; where ``i`` is
+      ``write_index(p, n)`` (``where(p < 0, p + n, p)`` clamped into the
+      buffer), each write takes its own copy of the wrap and no clamp, as
+      each ``lax.dynamic_update_slice_in_dim`` wraps its index and clamps
+      inside the op.
+    """
+    graph = gm.graph
+    sel, scat = _A.select.int, _A.select_scatter.default
+    for node in list(graph.nodes):
+        if node.target is _A.index_copy.default:
+            idx = node.args[2]
+            if idx.target in (_A.unsqueeze.default, _A.view.default) and \
+                    idx.args[0].meta["val"].dim() == 0:
+                idx = _own_wrap(graph, node, idx.args[0])
+                node.args = node.args[:2] + (idx,) + node.args[3:]
+        if node.target is not sel:
+            continue
+        base, dim, i = node.args
+        r, n = base.meta["val"].dim(), base.meta["val"].shape[dim]
+        dim, i = dim % r, i % n
+        while base.target is scat and base.args[2] % r == dim:
+            if base.args[3] % n == i:
+                node.replace_all_uses_with(base.args[1])
+                break
+            base = base.args[0]
+        else:
+            node.args = (base, dim, i)
+    out = next(n for n in graph.nodes if n.op == "output")
+
+    def stacked(v):
+        if not isinstance(v, torch.fx.Node) or v.target is not scat:
+            return v
+        slots, n = {}, v
+        while n.target is scat and n.args[2] == 0:
+            slots.setdefault(n.args[3] % n.meta["val"].shape[0], n.args[1])
+            n = n.args[0]
+        if n.op != "placeholder" or len(slots) != v.meta["val"].shape[0]:
+            return v
+        with graph.inserting_before(out):
+            st = graph.call_function(_A.stack.default,
+                                     ([slots[k] for k in range(len(slots))], 0))
+        st.meta.update(val=v.meta["val"], stack_trace=v.meta.get("stack_trace"),
+                       custom={"scope": ""})
+        return st
+
+    out.args = (torch.fx.node.map_aggregate(out.args[0], stacked),)
+    for node in list(graph.nodes):
+        if node.target is _A.copy_.default and node.args[0].op == "placeholder":
+            graph.erase_node(node)
+    graph.eliminate_dead_code()
+    gm.recompile()
+
+
+def _own_wrap(graph, user, idx):
+    """``idx`` as ``user``'s own ``dynamic_update_slice`` start: for
+    ``clamp(where(p < 0, p + n, p), 0, n - 1)`` over ``user``'s written dim
+    of size ``n``, a copy of the ``where`` chain for ``user`` alone, in its
+    scope and at its line (the op clamps); else ``idx``."""
+    n = user.args[0].meta["val"].shape[user.args[1]]
+    if idx.target is not _A.clamp.default or idx.args[1:] != (0, n - 1):
+        return idx
+    w = idx.args[0]
+    if w.target is not _A.where.self:
+        return idx
+    lt, add, p = w.args
+    if (lt.target is not _A.lt.Scalar or lt.args != (p, 0)
+            or add.target is not _A.add.Tensor or add.args != (p, n)):
+        return idx
+    with graph.inserting_before(user):
+        env = {p: p}
+        for old in (lt, add, w):
+            env[old] = graph.node_copy(old, lambda a: env[a])
+            env[old].meta.update(custom=user.meta.get("custom"),
+                                 stack_trace=user.meta.get("stack_trace"))
+    return env[w]
 
 
 def _leaf_shapes(args) -> tuple[list, Any]:
@@ -756,7 +1146,9 @@ def trace(
     ``args`` are pytrees of tensors (real or fake) or :class:`ShapeDtype`s.
     Returns ``(graph, input_node_ids, output_node_ids)`` where input ids are
     in :func:`repro_torch.tree.tree_flatten` order (register sharding facts
-    against these).
+    against these).  ``fn`` may write its inputs in place and return them
+    (a serving step and its caches): it is traced functionalized, so what
+    it writes is what its outputs compute.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -799,7 +1191,8 @@ def trace_sharded(
     a traced 0-d int64 input (emitted as ``axis_index``).  ``args`` are
     *global* shapes; ``in_specs`` holds one spec tree per argument, and each
     input node carries the per-rank shape its spec gives.  The trace runs
-    under a fake process group of ``size`` ranks.
+    under a fake process group of ``size`` ranks; in-place writes as in
+    :func:`trace`.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 

@@ -12,11 +12,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel.ctx import ParallelCtx
 
-from .modules import apply_rope, linear, linear_init, rmsnorm, rmsnorm_init
+from .modules import apply_rope, einsum_f32, linear, linear_init, rmsnorm, rmsnorm_init
 
 
 def attn_init(generator, cfg, *, stacked: tuple = (), dtype=torch.bfloat16):
@@ -58,10 +59,17 @@ def chunked_attention(
     _, Hkv, Sk, _ = k.shape
     G = Hq // Hkv
     dev = q.device
-    qg = q.reshape(B, Hkv, G, Sq, hd).float()
+    qg = q.reshape(B, Hkv, G, Sq, hd)
     scale = 1.0 / math.sqrt(hd)
     chunk = min(chunk, Sk)
     n_chunks = (Sk + chunk - 1) // chunk
+    pad = n_chunks * chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    # (n_chunks, B, Hkv, chunk, hd), as the JAX version scans them
+    kc = k.reshape(B, Hkv, n_chunks, chunk, hd).permute(2, 0, 1, 3, 4)
+    vc = v.reshape(B, Hkv, n_chunks, chunk, hd).permute(2, 0, 1, 3, 4)
     q_pos = q_offset + torch.arange(Sq, device=dev)
 
     neg = -1e30
@@ -69,23 +77,22 @@ def chunked_attention(
     denom = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hkv, G, Sq, hd), dtype=torch.float32, device=dev)
     for ci in range(n_chunks):
-        kb = k[:, :, ci * chunk:(ci + 1) * chunk]
-        vb = v[:, :, ci * chunk:(ci + 1) * chunk]
-        width = kb.shape[2]  # the last chunk is short where the JAX path pads
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb.float()) * scale
-        k_pos = k_offset + ci * chunk + torch.arange(width, device=dev)
-        mask = torch.ones((Sq, width), dtype=torch.bool, device=dev)
+        kb, vb = kc[ci], vc[ci]
+        s = einsum_f32("bhgqd,bhkd->bhgqk", qg, kb) * scale
+        k_pos = k_offset + ci * chunk + torch.arange(chunk, device=dev)
+        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
         if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
         if kv_len is not None:
-            mask &= k_pos[None, :] < kv_len
-        s = torch.where(mask, s, neg)
+            mask = mask & (k_pos[None, :] < kv_len)
+        if pad:
+            mask = mask & (ci * chunk + torch.arange(chunk, device=dev) < Sk)[None, :]
+        s = torch.where(mask[None, None, None], s, neg)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         denom = denom * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bhkd->bhgqd", p.to(vb.dtype).float(), vb.float())
+        acc = acc * corr[..., None] + einsum_f32("bhgqk,bhkd->bhgqd", p.to(vb.dtype), vb)
         m = m_new
     if with_stats:
         return acc, m, denom
@@ -131,21 +138,24 @@ def attn_init_cache(cfg, batch: int, max_len: int, tp_size: int = 1, cp_size: in
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _write_index(position: int, size: int) -> int:
-    """The start index ``lax.dynamic_update_slice`` uses for a length-1
-    update: a negative index counts from the end, then it is clamped."""
-    if position < 0:
-        position += size
-    return min(max(position, 0), size - 1)
+def write_index(position: torch.Tensor, size: int) -> torch.Tensor:
+    """The start index ``lax.dynamic_update_slice_in_dim`` uses for a
+    length-1 update at ``position`` (a 0-d int64 tensor): a negative index
+    counts from the end once, then the start is clamped into the buffer."""
+    return torch.where(position < 0, position + size, position).clamp(0, size - 1)
 
 
-def attn_decode(cfg, ctx: ParallelCtx, p, x, cache, position: int, *,
+def attn_decode(cfg, ctx: ParallelCtx, p, x, cache, position, write_at, *,
                 unroll: bool = False):
     """Single-token decode with KV cache update.
 
-    x: (B, 1, D); cache k/v: (B, Hkv, S, hd); ``position`` a Python int.
-    The new K/V are written into ``cache`` in place (the JAX version returns
-    updated copies), and the same dict is returned.
+    x: (B, 1, D); cache k/v: (B, Hkv, S, hd); ``position`` a 0-d int64
+    tensor on x's device; ``write_at`` is ``write_index(position, S)[None]``,
+    which the caller computes once a step for every layer.  The new K/V are
+    written into ``cache`` in place with ``index_copy_`` at ``write_at``
+    (the JAX version returns ``dynamic_update_slice`` copies; the verifier
+    traces each write as that op, with its own index wrap), and the same
+    dict is returned.
     """
     if ctx.cp_axis:
         raise NotImplementedError("context-parallel decode is not ported yet")
@@ -162,13 +172,11 @@ def attn_decode(cfg, ctx: ParallelCtx, p, x, cache, position: int, *,
     if cfg.qk_norm:
         q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
         knew = rmsnorm(p["knorm"], knew, cfg.norm_eps)
-    pos = torch.full((1,), position, dtype=torch.int64, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_fraction, cfg.rope_theta)
-    knew = apply_rope(knew, pos, cfg.rope_fraction, cfg.rope_theta)
+    q = apply_rope(q, position[None], cfg.rope_fraction, cfg.rope_theta)
+    knew = apply_rope(knew, position[None], cfg.rope_fraction, cfg.rope_theta)
 
-    w = _write_index(position, cache["k"].shape[2])
-    cache["k"][:, :, w:w + 1] = knew
-    cache["v"][:, :, w:w + 1] = vnew
+    cache["k"].index_copy_(2, write_at, knew)
+    cache["v"].index_copy_(2, write_at, vnew)
     out = chunked_attention(q, cache["k"], cache["v"], causal=False,
                             kv_len=position + 1, unroll=unroll)
     out = out.transpose(1, 2).reshape(B, 1, Hq_loc * hd)

@@ -21,12 +21,12 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.parallel.collectives import vp_embed
+from repro_torch.parallel.collectives import vp_embed, vp_embed_sp
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.scope import named_scope
 from repro_torch.tree import tree_map
 
-from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache
+from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache, write_index
 from .mlp import mlp_fwd, mlp_init
 from .modules import _init, linear_init, rmsnorm, rmsnorm_init
 from .ssm import ssm_decode, ssm_fwd, ssm_init, ssm_init_cache
@@ -106,11 +106,13 @@ class Model:
         """Single device: row lookup with ``jnp.take``'s default semantics (a
         negative id counts from the end, an id out of range gives a row of
         NaN).  Under TP: the vocab-parallel lookup ``vp_embed`` in a
-        ``vp_embed`` scope, the region the verifier's meta rule trusts."""
+        ``vp_embed`` scope, the region the verifier's meta rule trusts (under
+        SP ``vp_embed_sp``, which scopes the partial lookup and leaves the
+        sequence reduce_scatter outside)."""
         table = params["embed"]["w"]
         if self.ctx.tp_axis:
             if self.ctx.sp:
-                raise NotImplementedError("sequence parallelism is not ported yet")
+                return vp_embed_sp(table, ids, self.ctx)
             with named_scope("vp_embed"):
                 return vp_embed(table, ids, self.ctx)
         V = table.shape[0]
@@ -184,29 +186,45 @@ class Model:
             caches.append({k: v.new_zeros((nb, *v.shape)) for k, v in c.items()})
         return tuple(caches)
 
-    def decode_step(self, params, token, caches, position: int, *, unroll: bool = False):
-        """One decode step.  token: (B,) int; position: Python int.
-        Returns (logits (B, V), caches).  The caches are updated in place and
-        returned (the JAX version returns updated copies)."""
+    def decode_step(self, params, token, caches, position, *, unroll: bool = False):
+        """One decode step.  token: (B,) int; position: a 0-d int64 tensor
+        on the model's device (a Python int is converted).  Returns (logits
+        (B, V_loc), caches): the caches are written in place and returned
+        (the JAX version returns updated copies; the verifier traces this
+        step functionalized, so the written caches are its outputs).  Block
+        ``i`` runs in a ``layer<i>`` scope and its sub-layer ``j`` in
+        ``sub<j>``, one stamping period per block."""
         del unroll
-        cfg, ctx = self.cfg, self.ctx
+        cfg = self.cfg
+        position = torch.as_tensor(position, dtype=torch.int64, device=self.device)
         x = self._embed_tokens(params, token[:, None])  # (B,1,D)
         P = cfg.block_period
+        kv = next((c["k"] for c in caches if "k" in c), None)
+        # the KV write index, once for every layer
+        w = None if kv is None else write_index(position, kv.shape[3])[None]
         for i in range(cfg.n_layers // P):
-            for j in range(P):
-                lp = _tree_index(params["blocks"][j], i)
-                hn = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-                cache = _tree_index(caches[j], i)  # views into the stacked cache
-                if cfg.is_attn_layer(j):  # writes its KV cache in place
-                    mix, _ = attn_decode(cfg, ctx, lp["attn"], hn, cache, position)
-                else:  # returns new tensors: copy them into the views
-                    mix, new = ssm_decode(cfg, ctx, lp["ssm"], hn, cache)
-                    for name, t in new.items():
-                        cache[name].copy_(t)
-                x = x + mix
-                if "ln2" in lp:
-                    hn = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-                    x = x + mlp_fwd(cfg, ctx, lp["mlp"], hn)
+            with named_scope(f"layer{i}"):  # the block's slices, as in JAX
+                lps = [_tree_index(params["blocks"][j], i) for j in range(P)]
+                # views into the stacked caches
+                cs = [_tree_index(caches[j], i) for j in range(P)]
+                for j in range(P):
+                    with named_scope(f"sub{j}"):
+                        x = self._decode_layer(lps[j], cs[j], position, w, x, j)
         x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = self._head(params, x)[:, 0]  # (B, V)
         return logits, caches
+
+    def _decode_layer(self, lp, cache, position, write_at, x, j: int):
+        cfg, ctx = self.cfg, self.ctx
+        hn = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        if cfg.is_attn_layer(j):  # writes its KV cache in place
+            mix, _ = attn_decode(cfg, ctx, lp["attn"], hn, cache, position, write_at)
+        else:  # returns new tensors: copy them into the views
+            mix, new = ssm_decode(cfg, ctx, lp["ssm"], hn, cache)
+            for name, t in new.items():
+                cache[name].copy_(t)
+        x = x + mix
+        if "ln2" in lp:
+            hn = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+            x = x + mlp_fwd(cfg, ctx, lp["mlp"], hn)
+        return x

@@ -12,6 +12,15 @@ import torch
 import torch.nn.functional as F
 
 
+def einsum_f32(equation: str, a, b):
+    """``jnp.einsum(equation, a, b, preferred_element_type=jnp.float32)``:
+    the product of two operands of one type, accumulated and returned in
+    float32 (the verifier's tracer lowers it to one such ``dot_general``)."""
+    if torch.overrides.has_torch_function((a, b)):
+        return torch.overrides.handle_torch_function(einsum_f32, (a, b), equation, a, b)
+    return torch.einsum(equation, a.float(), b.float())
+
+
 def _init(generator: torch.Generator, shape, scale: Optional[float] = None,
           dtype=torch.bfloat16):
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0] if shape else 1)

@@ -83,13 +83,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None, return_state: boo
 
     xc = x.reshape(Bsz, nc, Q, H, P)
     dtc = dt.reshape(Bsz, nc, Q, H).float()
-    Bc = Bm.reshape(Bsz, nc, Q, N).float()
-    Cc = Cm.reshape(Bsz, nc, Q, N).float()
+    Bc = Bm.reshape(Bsz, nc, Q, N)  # converted at each use, as in JAX
+    Cc = Cm.reshape(Bsz, nc, Q, N)
     dA = dtc * A  # (B,nc,Q,H) log-decay per step
 
     # within-chunk ("diagonal") term
     L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B,nc,H,Q,Q)
-    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc.float(), Bc.float())
     att = scores[:, :, None, :, :] * L  # (B,nc,H,Q,K); L zero above diagonal
     xdt = xc.float() * dtc[..., None]  # (B,nc,Q,H,P)
     y_diag = torch.einsum("bchqk,bckhp->bcqhp", att, xdt)
@@ -97,7 +97,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None, return_state: boo
     # per-chunk states
     cum = torch.cumsum(dA, dim=2)  # (B,nc,Q,H)
     decay_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
-    states = torch.einsum("bckn,bckh,bckhp->bchpn", Bc, decay_end * dtc, xc.float())
+    states = torch.einsum("bckn,bckh,bckhp->bchpn", Bc.float(), decay_end * dtc, xc.float())
 
     # inter-chunk recurrence
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
@@ -107,10 +107,10 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None, return_state: boo
     for ci in range(nc):
         prevs.append(s)
         s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
-    prev = torch.stack(prevs, dim=1)  # (B,nc,H,P,N) state entering each chunk
+    prev = torch.stack(prevs).permute(1, 0, 2, 3, 4)  # (B,nc,H,P,N) entering each chunk
 
     decay_start = torch.exp(cum)  # (B,nc,Q,H)
-    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc, prev, decay_start)
+    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc.float(), prev, decay_start)
 
     y = (y_diag + y_off).reshape(Bsz, S, H, P)
     if return_state:

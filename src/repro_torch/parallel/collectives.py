@@ -8,6 +8,8 @@ generated subgraph changes the fingerprint and the region stays unverified.
 """
 from __future__ import annotations
 
+from repro_torch.scope import named_scope
+
 
 def vp_embed_partial(table, ids, rank):
     """Vocab-parallel embedding *partial*: local-chunk lookup + range mask,
@@ -29,3 +31,14 @@ def vp_embed(table, ids, ctx):
     """Vocab-parallel embedding: local-chunk lookup + range mask + psum over
     the context's tensor-parallel axis."""
     return ctx.psum_tp(vp_embed_partial(table, ids, ctx.tp_index()))
+
+
+def vp_embed_sp(table, ids, ctx):
+    """Sequence-parallel vocab embedding: the partial lookup in a
+    ``vp_embed_sp`` scope (the region the verifier's meta rule trusts), then
+    the reduce_scatter along the sequence that enters the SP region
+    (``ctx.sp_enter``), outside the scope, where the ordinary collective
+    rule discharges it."""
+    with named_scope("vp_embed_sp"):
+        x = vp_embed_partial(table, ids, ctx.tp_index())
+    return ctx.sp_enter(x)

@@ -3,16 +3,18 @@
 Model code is written once against this facade.  With all axes ``None`` the
 context is a no-op and the model is the single-device program.  With the
 tensor-parallel axis set, the same code is the per-rank program of Megatron
-TP: its collectives are ``torch.distributed._functional_collectives`` calls
-on the context's process group, so the same calls run on gloo or NCCL ranks
-and trace as explicit collective nodes under the verifier's fake process
-group (``repro_torch.core.trace``).
+TP: its collectives are ``torch.distributed``'s functional collective ops
+(``torch.ops._c10d_functional``) on the context's process group, so the same
+calls run on gloo or NCCL ranks and trace as explicit collective nodes under
+the verifier's fake process group (``repro_torch.core.trace``).
 
 The rank is a 0-d int64 tensor that the context holds (``rank``), never
 ``dist.get_rank()``: a trace would fold that Python int into a constant,
 where the verifier needs the rank as a symbolic ``axis_index`` node.
-Sequence parallelism and the data and context-parallel axes are not ported
-yet: each raises ``NotImplementedError`` when it is switched on.
+Sequence parallelism (``sp``) replaces the psum after each row-parallel
+region by a reduce_scatter along the sequence and gathers the sequence back
+before each column-parallel region.  The data and context-parallel axes are
+not ported yet: each raises ``NotImplementedError`` when it is switched on.
 """
 from __future__ import annotations
 
@@ -26,10 +28,8 @@ def _unported(what) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet")
 
 
-def _funcol():
-    import torch.distributed._functional_collectives as funcol
-
-    return funcol
+def _c10d():
+    return torch.ops._c10d_functional
 
 
 @dataclass(frozen=True)
@@ -54,11 +54,12 @@ class ParallelCtx:
 
     @staticmethod
     def tensor_parallel(size: int, rank: Optional[torch.Tensor] = None,
-                        axis: str = "model") -> "ParallelCtx":
+                        axis: str = "model", sp: bool = False) -> "ParallelCtx":
         """Megatron TP over ``axis`` (experts, when there are any, over the
-        same axis, as ``ParallelCtx.from_mesh`` sets it in the JAX package)."""
+        same axis, as ``ParallelCtx.from_mesh`` sets it in the JAX package),
+        sequence-parallel with ``sp``."""
         return ParallelCtx(tp_axis=axis, tp_size=size, ep_axis=axis, ep_size=size,
-                           rank=rank)
+                           sp=sp, rank=rank)
 
     def with_rank(self, rank: torch.Tensor) -> "ParallelCtx":
         return replace(self, rank=rank)
@@ -67,32 +68,47 @@ class ParallelCtx:
     def distributed(self) -> bool:
         return self.tp_axis is not None or self.dp_axis is not None
 
-    def _group(self):
-        """The tp axis' process group: the default group, which holds every
-        rank while tp is the only axis that runs."""
+    def _group(self) -> str:
+        """The name of the tp axis' process group, as the functional
+        collective ops take it: the default group, which holds every rank
+        while tp is the only axis that runs."""
         import torch.distributed as dist
 
-        return dist.group.WORLD
+        return dist.distributed_c10d._get_default_group().group_name
+
+    def _all_reduce(self, x, op: str):
+        return _c10d().wait_tensor(_c10d().all_reduce(x.contiguous(), op, self._group()))
 
     # -- tensor-parallel collectives -----------------------------------------
     def psum_tp(self, x):
         """Discharge a row-parallel partial sum (Megatron g-bar)."""
-        return _funcol().all_reduce(x, "sum", self._group()) if self.tp_axis else x
+        return self._all_reduce(x, "sum") if self.tp_axis else x
 
     def pmax_tp(self, x):
-        return _funcol().all_reduce(x, "max", self._group()) if self.tp_axis else x
+        return self._all_reduce(x, "max") if self.tp_axis else x
 
     def gather_tp(self, x, axis: int):
-        """all_gather_into_tensor along dim 0, then the tiled move to ``axis``."""
+        """Tiled all_gather along ``axis``: the dim-0 functional collective,
+        then the rank blocks moved to ``axis`` (chunk + cat, which the
+        verifier's tracer folds back into one all_gather along ``axis``)."""
         if not self.tp_axis:
             return x
-        return _funcol().all_gather_tensor(x, axis % x.ndim, self._group())
+        y = _c10d().wait_tensor(_c10d().all_gather_into_tensor(
+            x.contiguous(), self.tp_size, self._group()))
+        axis %= x.ndim
+        return torch.cat(torch.chunk(y, self.tp_size, dim=0), dim=axis) if axis else y
 
     def scatter_tp(self, x, axis: int):
-        """reduce_scatter: partial-sum in, shard out."""
+        """reduce_scatter along ``axis``: partial-sum in, shard out (the rank
+        blocks of ``axis`` moved to dim 0 first, for the dim-0 functional
+        collective; the tracer folds this back as in ``gather_tp``)."""
         if not self.tp_axis:
             return x
-        return _funcol().reduce_scatter_tensor(x, "sum", axis % x.ndim, self._group())
+        axis %= x.ndim
+        if axis:
+            x = torch.cat(torch.chunk(x, self.tp_size, dim=axis))
+        return _c10d().wait_tensor(_c10d().reduce_scatter_tensor(
+            x.contiguous(), "sum", self.tp_size, self._group()))
 
     def tp_index(self):
         if not self.tp_axis:
@@ -104,17 +120,20 @@ class ParallelCtx:
 
     # -- sequence-parallel region helpers ------------------------------------
     def sp_enter(self, x, seq_axis: int = 1):
-        """Row-parallel output -> the next region's input: a plain psum (the
-        reduce_scatter of sequence parallelism is not ported yet)."""
+        """Row-parallel output -> the next region's input.  SP on: a
+        reduce_scatter along the sequence.  SP off: a plain psum."""
         if not self.tp_axis:
             return x
         if self.sp:
-            raise _unported("sequence parallelism")
+            return self.scatter_tp(x, seq_axis)
         return self.psum_tp(x)
 
     def sp_exit(self, x, seq_axis: int = 1):
+        """Sequence-sharded activation -> the replicated input of a
+        column-parallel region.  SP on: an all_gather along the sequence.
+        SP off: identity."""
         if self.tp_axis and self.sp:
-            raise _unported("sequence parallelism")
+            return self.gather_tp(x, seq_axis)
         return x
 
     # -- data-parallel -------------------------------------------------------

@@ -15,8 +15,10 @@ Megatron-style TP over axis "model" (the JAX package's table, dim for dim):
   mlp wo (F,D)       -> row-parallel        P('model', None)
   ssm wx/wz/wdt      -> head-column         P(None, 'model')
   norms, B/C         -> replicated
-(stacked block params carry a leading None for the n_blocks dim.)  Cache
-specs wait for the tp-decode scenario.
+(stacked block params carry a leading None for the n_blocks dim.)  The
+serving caches (``cache_specs``) shard attention k/v and the SSM state on
+their head dim and the SSM ``conv_x`` buffer on its channel dim; the
+``conv_B``/``conv_C`` buffers are replicated, as ``wB``/``wC`` are.
 """
 from __future__ import annotations
 
@@ -115,6 +117,27 @@ def batch_spec(batch: Any, dp):
         return P(dp, *([None] * (nd - 1)))
 
     return tree_map(visit, batch)
+
+
+def cache_specs(cache_shapes: Any, dp=None, tp: str = TP, cp=None):
+    """KV/SSM cache sharding.  attn k/v: (nb, B, Hkv, S, hd); ssm state:
+    (nb, B, H, P, N); conv buffers (nb, B, K-1, C).  ``dp`` and ``cp`` (the
+    batch and sequence axes) are None on every path the port runs."""
+
+    def visit(path, leaf):
+        leafname = str(path[-1]) if path else ""
+        nd = len(leaf.shape)
+        if leafname in ("k", "v"):
+            return P(None, dp, tp, cp, None) if nd == 5 else P(dp, tp, cp, None)
+        if leafname == "state":
+            return P(None, dp, tp, None, None) if nd == 5 else P(dp, tp, None, None)
+        if leafname == "conv_x":
+            return P(None, dp, None, tp) if nd == 4 else P(dp, None, tp)
+        if leafname in ("conv_B", "conv_C"):
+            return P(None, dp, None, None) if nd == 4 else P(dp, None, None)
+        return P(*([None] * nd))
+
+    return tree_map_with_path(visit, cache_shapes)
 
 
 def shard_params(params: Any, specs: Any, rank: int, size: int, axis: str = TP):

@@ -15,7 +15,10 @@ program computes.  On the CPU gloo runs over CPU tensors.
 :func:`tp_forward` is the per-rank program of Megatron TP for a model
 config: each rank draws the single-device parameter set from one seed,
 keeps its shard (``param_specs``), and runs the forward pass with the
-collectives of ``ParallelCtx.tensor_parallel``.
+collectives of ``ParallelCtx.tensor_parallel`` (sequence-parallel with
+``sp``).  :func:`tp_decode` is its serving counterpart: the decode step the
+verifier's ``tp-decode`` scenario proves, fed one position at a time
+against this rank's shard of the caches (``cache_specs``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import traceback
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.tree import tree_map
 
 
 def _free_port() -> int:
@@ -95,11 +100,10 @@ def run(fn: Callable, world: int, args: tuple = (), timeout: float = 600.0) -> l
     return [out[r] for r in range(world)]
 
 
-def tp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
-               impl: str = "kernel", device: str = "cuda") -> dict:
-    """One rank of the TP forward pass of ``cfg`` (on the card unless
-    ``device`` says otherwise): returns this rank's vocab shard of the
-    logits (on the CPU) and the forward time in ms."""
+def _rank_model(rank: int, world: int, cfg, seed: int, impl: str, device: str,
+                sp: bool = False):
+    """This rank's model and its shard of the single-device parameters drawn
+    from ``seed``."""
     from repro_torch.models import Model
     from repro_torch.parallel.ctx import ParallelCtx
     from repro_torch.parallel.sharding import param_specs, shard_params
@@ -110,8 +114,18 @@ def tp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
     params = shard_params(full, param_specs(full), rank, world)
     del full
     ctx = ParallelCtx.tensor_parallel(
-        world, rank=torch.tensor(rank, dtype=torch.int64, device=dev))
-    model = Model(cfg, ctx, impl=impl, device=dev)
+        world, rank=torch.tensor(rank, dtype=torch.int64, device=dev), sp=sp)
+    return Model(cfg, ctx, impl=impl, device=dev), params
+
+
+def tp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
+               impl: str = "kernel", device: str = "cuda", sp: bool = False) -> dict:
+    """One rank of the TP forward pass of ``cfg`` (on the card unless
+    ``device`` says otherwise; sequence-parallel with ``sp``): returns this
+    rank's vocab shard of the logits (on the CPU) and the forward time in
+    ms."""
+    model, params = _rank_model(rank, world, cfg, seed, impl, device, sp)
+    dev = model.device
     batch = {"tokens": tokens.to(dev)}
     with torch.inference_mode():
         if dev.type == "cuda":
@@ -122,3 +136,31 @@ def tp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
     return {"logits": logits.cpu(), "ms": ms}
+
+
+def tp_decode(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
+              max_len: int, device: str = "cuda") -> dict:
+    """One rank of the TP serving step of ``cfg``: ``tokens`` (B, T) are fed
+    through ``decode_step`` one position at a time, position ``t`` taking
+    ``tokens[:, t]``, against this rank's shard of zeroed caches of
+    ``max_len`` positions.  Returns each step's vocab shard of the logits
+    (T, B, V_loc), the final cache shards (on the CPU) and the mean time of
+    one step in ms."""
+    model, params = _rank_model(rank, world, cfg, seed, "reference", device)
+    dev = model.device
+    caches = model.init_cache(tokens.shape[0], max_len)
+    tokens = tokens.to(dev)
+    logits = []
+    with torch.inference_mode():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(tokens.shape[1]):
+            pos = torch.full((), t, dtype=torch.int64, device=dev)
+            out, caches = model.decode_step(params, tokens[:, t], caches, pos)
+            logits.append(out)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
+    return {"logits": torch.stack(logits).cpu(),
+            "caches": tree_map(lambda c: c.cpu(), caches), "ms": ms}

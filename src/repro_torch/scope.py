@@ -5,8 +5,9 @@ puts the path on every fx node traced inside it, as
 ``node.meta["custom"]["scope"]`` (through ``torch.fx.traceback.annotate``;
 fx copies it onto nodes created under ``preserve_node_meta()``).  The
 verifier's tracer turns ``layer<i>`` paths into layer tags and meta rules
-match regions such as ``vp_embed`` by scope.  Outside a trace it only
-updates one dict, so model code keeps it on its run-time path.
+match regions such as ``vp_embed`` by scope.  Outside a trace (no
+``preserve_node_meta()``, which the tracer sets) it does nothing, so model
+code keeps it on its run-time path at no cost.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ def current_scope() -> str:
 
 @contextmanager
 def named_scope(name: str):
+    if not fx_traceback.has_preserved_node_meta():
+        yield
+        return
     parent = current_scope()
     with fx_traceback.annotate({"scope": f"{parent}/{name}" if parent else name}):
         yield

@@ -114,7 +114,11 @@ class Engine:
             tokens[i] = t
             pos = max(pos, self._slots[i].pos if self._slots[i] else 0)
         token_t = torch.tensor(tokens, dtype=torch.int64).to(self.model.device)
-        logits, self.caches = self._step(self.params, token_t, self.caches, pos)
+        # the position as a 0-d tensor on the model's device (a fill, not a
+        # copy from the host): the step run here is the one the verifier
+        # traces, where the position is an input
+        pos_t = torch.full((), pos, dtype=torch.int64, device=self.model.device)
+        logits, self.caches = self._step(self.params, token_t, self.caches, pos_t)
         if not sample:
             return None
         if self.cfg.temperature <= 0:

@@ -12,8 +12,9 @@
 The :class:`Session` owns cross-call state (trace + template caches, a
 persistent worker pool), so sweeps and re-verifies are warm-start.
 One-shots: :func:`verify`.  CLI: ``python -m repro_torch.verify <arch>
---tp 4``.  Only the ``tp-forward`` scenario is ported so far
-(``python -m repro_torch.verify --list``).
+--tp 4 [--decode | --sp]``.  The ``tp-forward``, ``tp-decode`` and
+``sp-forward`` scenarios are ported so far (``python -m repro_torch.verify
+--list``).
 """
 from repro_torch.core.inject import DEFAULT_INJECTORS, InjectorRegistry, InjectorSpec
 from repro_torch.core.report import (

@@ -30,8 +30,9 @@ schema-versioned JSON; :meth:`CampaignReport.canonical` strips timings and
 cache counters so the same seeds produce byte-identical reports (the CI
 determinism check).
 
-Only the ``tp-forward`` scenario is ported: the cells of the others are
-reported as ``not_ported`` and count neither as detected nor as missed.
+The ``tp-forward``, ``tp-decode`` and ``sp-forward`` scenarios are
+ported: the cells of the others are reported as ``not_ported`` and count
+neither as detected nor as missed.
 The baseline-free lint tier is not ported either, so ``lint_detected``
 stays False.
 

@@ -126,6 +126,16 @@ def model_pair(cfg, ctx: ParallelCtx):
     return model_s, model_d, model_s.param_shapes()
 
 
+def cache_shapes(model: Model, batch: int, max_len: int):
+    """The serving caches as fake tensors (shapes and dtypes, no storage):
+    ``init_cache`` under a ``FakeTensorMode``, the counterpart of
+    ``jax.eval_shape(lambda: model.init_cache(batch, max_len))``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return model.init_cache(batch, max_len)
+
+
 # ----------------------------------------------------------------- stamping
 def stamped_parts(cfg, pair_fn, periods_per_block: int):
     """Trace only TRACE_PERIODS block periods and stamp the rest, or None.
@@ -168,6 +178,7 @@ def flat_spec_leaves(specs) -> list:
 
 
 __all__ = [
-    "BuildCtx", "GraphPair", "batch_avals", "flat_spec_leaves", "model_pair",
+    "BuildCtx", "GraphPair", "batch_avals", "cache_shapes", "flat_spec_leaves",
+    "model_pair",
     "round_layers", "stamped_or_full", "stamped_parts",
 ]

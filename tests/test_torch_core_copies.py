@@ -19,6 +19,8 @@ COPIES = [
         "engine", "fusion", "layout", "legacy", "parshard", "propagator", "reduce",
         "registry", "sliceops")),
     "verify/plan.py", "verify/specs.py", "verify/scenarios/registry.py",
+    *(f"configs/{a}.py" for a in (
+        "llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b")),
 ]
 
 # rewritten for torch, not copies
@@ -28,10 +30,12 @@ KNOWN_EXCEPTIONS = {
     "core/rules/meta.py": "the vp_embed template is traced by the port's tracer",
     "core/__init__.py": "exports the port's tracer",
     "verify/scenarios/harness.py": "shapes are ShapeDtype / fake tensors",
-    "verify/scenarios/tp.py": "tp-forward only; the rank is a traced input",
+    "verify/scenarios/tp.py": "the rank is a traced input; decode traced functionalized",
+    "verify/scenarios/sp.py": "no vision frontend to grow the sequence",
     "verify/store.py": "the rules hash keys on the torch version",
     "verify/session.py": "the lint tier is not ported",
     "verify/cli.py": "the lint tier and unported scenarios exit 2",
+    "verify/scenarios/__init__.py": "registers the ported scenarios only",
     "verify/campaign.py": "unported scenarios are reported, the lint tier is off",
 }
 

@@ -1,7 +1,11 @@
 """The port's model on the CPU against the JAX model: the same SMOKE weights
 (carried across with ``params_from_jax``) and the same numpy tokens give the
 same forward logits, and the same decode logits and caches (KV for attention
-layers, SSD state and conv buffers for SSM layers)."""
+layers, SSD state and conv buffers for SSM layers).  The configs cover qkv
+biases (qwen1_5_4b), half-dim RoPE with 2 KV heads (chatglm3_6b) and tied
+embeddings (a SMOKE variant with ``tie_embeddings=True``).  The decode
+position may be a 0-d tensor, as the engine passes it: the same logits and
+caches as the int, also where the write wraps or clamps."""
 import dataclasses
 import functools
 
@@ -21,10 +25,13 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.weights import params_from_jax  # noqa: E402
 
-ARCHS = ["llama3_8b", "qwen3_4b", "mamba2_130m"]
+ARCHS = ["llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b"]
 # jamba's SMOKE without experts: a JAX-valid hybrid with attention at layer 2
 # of a period of 4 and SSD layers elsewhere, for the mixed cache tuple
 HYBRID = "jamba_1_5_large-noexperts"
+# llama3_8b's SMOKE with the LM head tied to the embedding (gemma_2b's
+# feature; gemma_2b itself needs the flash kernel at head dim 256)
+TIED = "llama3_8b-tied"
 # f32: summation order only; bf16: the repo's bf16 kernel tolerance
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 # Configs with SSD layers in bf16 are held to relative RMS error instead, one
@@ -65,6 +72,9 @@ def _smoke_configs(arch: str):
     if arch == HYBRID:
         jcfg = dataclasses.replace(jax_config("jamba_1_5_large", smoke=True), n_experts=0)
         return jcfg, ArchConfig(**dataclasses.asdict(jcfg))
+    if arch == TIED:
+        jcfg = dataclasses.replace(jax_config("llama3_8b", smoke=True), tie_embeddings=True)
+        return jcfg, ArchConfig(**dataclasses.asdict(jcfg))
     return jax_config(arch, smoke=True), get_config(arch, smoke=True)
 
 
@@ -75,13 +85,16 @@ def _f32_init(arch: str):
         jax.random.PRNGKey(0))
 
 
-@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS + [HYBRID] for d in TOL],
+@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS + [HYBRID, TIED] for d in TOL],
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def pair(request):
+    return _pair(*request.param)
+
+
+def _pair(arch: str, dtype: str):
     """(JAX model, JAX params, port config, port params) with shared weights.
     Both dtypes take one f32 init, each leaf cast to the type that the
     model's own init gives it (which gives the same values as that init)."""
-    arch, dtype = request.param
     jcfg, tcfg = (dataclasses.replace(c, dtype=dtype) for c in _smoke_configs(arch))
     jm = JaxModel(jcfg)
     types = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
@@ -95,7 +108,7 @@ def _tokens(B=2, S=24, vocab=256, seed=0):
 
 
 def test_config_port_matches_jax():
-    for arch in ARCHS:
+    for arch in ARCHS:  # TIED and HYBRID are built from the JAX config itself
         for smoke in (False, True):
             j = dataclasses.asdict(jax_config(arch, smoke=smoke))
             t = dataclasses.asdict(get_config(arch, smoke=smoke))
@@ -146,6 +159,46 @@ def test_decode_matches_jax(pair, max_len):
         assert sorted(tc) == sorted(jc)
         for name in jc:
             assert tuple(tc[name].shape) == jc[name].shape
+            _assert_close(tc[name], jc[name], dtype, tcfg, "cache")
+
+
+@pytest.mark.parametrize("position", [-3, 9])  # wraps once; past max_len: clamps
+@pytest.mark.parametrize("arch", ARCHS + [HYBRID, TIED])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tensor_position_matches_int_and_jax(dtype, arch, position):
+    """The engine's 0-d tensor position gives the int position's logits and
+    caches, bit for bit, in both dtypes, and both follow
+    ``lax.dynamic_update_slice_in_dim``: a negative position counts from the
+    end once, a position past the buffer writes its last slot.  The JAX
+    comparison is made in f32, where it is exact (bf16 at these positions is
+    the rounding question the tests above bound)."""
+    jm, jp, tcfg, tp, _ = _pair(arch, dtype)
+    tm = Model(tcfg, device="cpu")
+    toks = _tokens(S=3, seed=4)
+    with_jax = dtype == "float32"
+    jcache = jm.init_cache(2, 6)
+    caches = {kind: tm.init_cache(2, 6) for kind in ("int", "tensor")}
+    step = jax.jit(jm.decode_step)
+    for t in range(2):  # two steps at 0, 1, then the one under test
+        tok = torch.from_numpy(toks[:, t]).long()
+        if with_jax:
+            jlog, jcache = step(jp, jnp.asarray(toks[:, t]), jcache, jnp.int32(t))
+        for kind in caches:
+            _, caches[kind] = tm.decode_step(tp, tok, caches[kind], t)
+    tok = torch.from_numpy(toks[:, 2]).long()
+    ilog, icache = tm.decode_step(tp, tok, caches["int"], position)
+    tlog, tcache = tm.decode_step(tp, tok, caches["tensor"], torch.tensor(position))
+    assert tlog.dtype == getattr(torch, dtype) and torch.equal(ilog, tlog)
+    for ic, tc in zip(icache, tcache):
+        assert sorted(ic) == sorted(tc)
+        for name in ic:
+            assert torch.equal(ic[name], tc[name])
+    if not with_jax:
+        return
+    jlog, jcache = step(jp, jnp.asarray(toks[:, 2]), jcache, jnp.int32(position))
+    _assert_close(tlog, jlog, dtype, tcfg)
+    for jc, tc in zip(jcache, tcache):
+        for name in jc:
             _assert_close(tc[name], jc[name], dtype, tcfg, "cache")
 
 

@@ -1,6 +1,8 @@
 """The port's serving path on the CPU: greedy generations equal the JAX
 engine's for the same f32 SMOKE weights, the launcher runs with
-``--device cpu``, and the port imports neither jax nor the JAX package.
+``--device cpu`` and its ``--verify-tp`` pre-flight gives the JAX
+launcher's exit codes, and the port imports neither jax nor the JAX
+package.
 
 For mamba2_130m the JAX engine's generations depend on the batch: an SSM
 slot absorbs the pad token 0 at every step in which it is not fed, and its
@@ -44,7 +46,8 @@ def _serve(engine, prompts, max_new):
     return [out[i] for i in ids]
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "llama3_8b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "llama3_8b", "mamba2_130m", "qwen1_5_4b",
+                                  "chatglm3_6b"])
 def test_engine_greedy_matches_jax(arch):
     jcfg = dataclasses.replace(jax_config(arch, smoke=True), dtype="float32")
     tcfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
@@ -81,6 +84,44 @@ def test_launcher_serves_mamba_on_cpu(capsys):
                               "--requests", "3", "--max-new", "4"]) == 0
     out = capsys.readouterr().out
     assert out.count("[done] req") == 3 and "on cpu" in out
+
+
+# (arch, --verify-tp, exit code of both launchers): qwen3_4b's SMOKE config
+# has 2 KV heads, so a 4-way decode plan is invalid in both packages;
+# mamba2_130m's SMOKE config with one SSD head a rank verifies in neither
+@pytest.mark.parametrize("arch,tp,code", [
+    ("qwen3_4b", 2, 0), ("qwen3_4b", 4, 2), ("mamba2_130m", 2, 0), ("mamba2_130m", 4, 2)])
+def test_launcher_verify_tp_matches_jax(arch, tp, code, capsys):
+    from repro.launch import serve as jax_serve
+
+    argv = ["--arch", arch, "--verify-tp", str(tp), "--requests", "2", "--max-new", "3"]
+    assert launch_serve.main(argv + ["--device", "cpu"]) == code
+    out = capsys.readouterr().out
+    assert f"[verify] checking {arch} plan tp{tp}-decode" in out
+    if code == 0:
+        assert "[verify] VERIFIED" in out and out.count("[done] req") == 2
+    else:
+        assert "[verify] ABORTING" in out and "[done]" not in out
+    assert jax_serve.main(argv) == code
+
+
+def test_launcher_unverified_plan_exits_before_serving(monkeypatch, capsys):
+    """A decode step whose attention output skips its psum does not verify:
+    the launcher exits 2 before any weight is drawn."""
+    from repro_torch.models import attention
+
+    real = attention.attn_decode
+
+    def no_psum(cfg, ctx, *a, **kw):
+        return real(cfg, dataclasses.replace(ctx, tp_axis=None), *a, **kw)
+
+    monkeypatch.setattr(attention, "attn_decode", no_psum)
+    monkeypatch.setattr("repro_torch.models.model.attn_decode", no_psum)
+    monkeypatch.setattr(launch_serve, "Model", lambda *a, **kw: pytest.fail("model built"))
+    argv = ["--arch", "qwen3_4b", "--verify-tp", "2", "--device", "cpu"]
+    assert launch_serve.main(argv) == 2
+    out = capsys.readouterr().out
+    assert "[verify] UNVERIFIED" in out and "ABORTING" in out and "[done]" not in out
 
 
 def test_launcher_needs_gpu_unless_cpu_asked():

@@ -4,7 +4,10 @@ shard_map over 8 host devices): llama3_8b and qwen3_4b SMOKE in f32, at
 TP 2 and TP 4, each rank holding its shard of one single-device parameter
 set (``param_specs``).  The rows are split over ranks for the
 row-parallel sums only, so the logits agree to f32 rounding: relative RMS
-error at most 1e-5 (about 5e-7 measured)."""
+error at most 1e-5 (about 5e-7 measured).  The same holds for the
+sequence-parallel forward and for the serving step: each decode step's
+logits, and each rank's final cache shards (``cache_specs``), against the
+single-device ``decode_step``, each leaf to the same relative RMS error."""
 import dataclasses
 
 import pytest
@@ -15,8 +18,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.parallel import spmd  # noqa: E402
 from repro_torch.parallel.ctx import ParallelCtx  # noqa: E402
-from repro_torch.parallel.sharding import (P, batch_spec, param_specs,  # noqa: E402
-                                           shard_params)
+from repro_torch.parallel.sharding import (P, batch_spec, cache_specs,  # noqa: E402
+                                           param_specs, shard_params)
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 REL_RMS = 1e-5
 SEED = 3
@@ -24,8 +28,12 @@ SEED = 3
 
 def _cfg(arch, tp):
     # the smoke configs' 2 KV heads, padded to the TP degree like CONFIG's 8 to 16
-    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
-                               n_kv_heads_padded=max(tp, 2))
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    return cfg if cfg.ssm_state else dataclasses.replace(cfg, n_kv_heads_padded=max(tp, 2))
+
+
+def _rel(got, want):
+    return ((got - want).norm() / want.norm()).item()
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -42,8 +50,49 @@ def test_tp_logits_equal_single_device(arch, tp):
     shards = [r["logits"] for r in ranks]
     assert all(s.shape == (2, 16, cfg.vocab_p // tp) for s in shards)
     got = torch.cat(shards, dim=-1)
-    rel = ((got - want).norm() / want.norm()).item()
-    assert rel <= REL_RMS, rel
+    assert _rel(got, want) <= REL_RMS
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sp_logits_equal_single_device(tp):
+    cfg = _cfg("llama3_8b", tp)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(2))
+    model = Model(cfg, impl="reference", device="cpu")
+    params = model.init(torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        want = model.forward(params, {"tokens": tokens})
+    ranks = spmd.run(spmd.tp_forward, tp, (cfg, SEED, tokens, "reference", "cpu", True),
+                     timeout=300)
+    got = torch.cat([r["logits"] for r in ranks], dim=-1)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= REL_RMS
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", ["llama3_8b", "mamba2_130m"])
+def test_tp_decode_equals_single_device(arch, tp):
+    cfg = _cfg(arch, tp)
+    steps, max_len = 6, 8
+    tokens = torch.randint(0, cfg.vocab, (2, steps), generator=torch.Generator().manual_seed(4))
+    model = Model(cfg, impl="reference", device="cpu")
+    params = model.init(torch.Generator().manual_seed(SEED))
+    caches = model.init_cache(2, max_len)
+    want = []
+    with torch.inference_mode():
+        for t in range(steps):
+            logits, caches = model.decode_step(params, tokens[:, t], caches, t)
+            want.append(logits)
+    ranks = spmd.run(spmd.tp_decode, tp, (cfg, SEED, tokens, max_len, "cpu"), timeout=300)
+    got = torch.cat([r["logits"] for r in ranks], dim=-1)
+    assert got.shape == (steps, 2, cfg.vocab_p)
+    for t in range(steps):
+        assert _rel(got[t], want[t]) <= REL_RMS, t
+    specs = cache_specs(caches)
+    for rank, out in enumerate(ranks):
+        shard = tree_leaves(shard_params(caches, specs, rank, tp))
+        for a, b in zip(tree_leaves(out["caches"]), shard):
+            assert a.shape == b.shape
+            assert _rel(a, b) <= REL_RMS
 
 
 def test_shard_params_follows_param_specs():
@@ -63,13 +112,16 @@ def test_shard_params_follows_param_specs():
 
 def _collectives_rank(rank, world):
     ctx = ParallelCtx.tensor_parallel(world, rank=torch.tensor(rank))
+    sp = ParallelCtx.tensor_parallel(world, rank=torch.tensor(rank), sp=True)
     x = torch.arange(6.0).reshape(2, 3) + 10 * rank
     ones = torch.ones(2 * world, 3) * (rank + 1)
+    seq = torch.arange(2.0 * 2 * world * 3).reshape(2, 2 * world, 3) * (rank + 1)
     # a clone waits on the functional collective's result
     return {"sum": ctx.psum_tp(x).clone(), "max": ctx.pmax_tp(x).clone(),
             "gather": ctx.gather_tp(x, 1).clone(),
             "scatter": ctx.scatter_tp(ones, 0).clone(), "index": int(ctx.tp_index()),
-            "sp_enter": ctx.sp_enter(x).clone()}
+            "sp_enter": ctx.sp_enter(x).clone(), "sp_scatter": sp.sp_enter(seq).clone(),
+            "sp_gather": sp.sp_exit(seq[:, :2]).clone()}
 
 
 def test_collectives_on_gloo_ranks():
@@ -82,8 +134,13 @@ def test_collectives_on_gloo_ranks():
         assert torch.equal(out["max"], torch.maximum(xs[0], xs[1]))
         assert torch.equal(out["gather"], torch.cat(xs, dim=1))
         assert torch.equal(out["scatter"], torch.full((2, 3), 3.0))
+        # sequence parallelism: scatter and gather along the sequence (dim 1)
+        seq = torch.arange(2.0 * 2 * world * 3).reshape(2, 2 * world, 3)
+        assert torch.equal(out["sp_scatter"], 3 * seq[:, 2 * rank:2 * rank + 2])
+        assert torch.equal(out["sp_gather"], torch.cat(
+            [seq[:, :2] * (r + 1) for r in range(world)], dim=1))
     with pytest.raises(NotImplementedError):
-        ParallelCtx(tp_axis="model", tp_size=2, sp=True).sp_exit(xs[0])
+        ParallelCtx(cp_axis="data", cp_size=2).psum_cp(xs[0])
     with pytest.raises(NotImplementedError):
         ParallelCtx(dp_axis="data", dp_size=2).psum_dp(xs[0])
     assert batch_spec({"tokens": xs[0]}, "data") == {"tokens": P("data", None)}

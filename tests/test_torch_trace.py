@@ -42,11 +42,17 @@ def _trace(fn, *shapes):
 
 # ------------------------------------------------------------- vocabulary
 def test_matmul_3d_lowers_to_reshape_dot_reshape():
+    """A 3-D activation times a matrix lowers as ``jnp.matmul``: one
+    ``dot_general`` over the last dim, without the reshapes ATen puts around
+    an ``mm`` of merged rows (the lowering this test was named after); a
+    matrix times a matrix stays one ``dot``."""
     g, ins, outs = _trace(lambda x, w: x @ w, ((2, 8, 16), F32), ((16, 4), F32))
-    assert _ops(g) == ["reshape", "dot", "reshape"]
+    assert _ops(g) == ["dot"]
     dot = next(n for n in g if n.op == "dot")
-    assert dot.param("dimension_numbers") == (((1,), (0,)), ((), ()))
+    assert dot.param("dimension_numbers") == (((2,), (0,)), ((), ()))
     assert g[outs[0]].shape == (2, 8, 4) and g[outs[0]].dtype == "float32"
+    g, _, _ = _trace(lambda x, w: torch.matmul(x, w), ((8, 16), F32), ((16, 4), F32))
+    assert _ops(g) == ["dot"]
 
 
 def test_einsum_is_one_dot_general_with_batch_dims():
@@ -106,6 +112,34 @@ def test_inplace_softmax_and_opaque_ops():
     assert "aten.gelu" in gelu.param("target")
 
 
+@pytest.mark.parametrize("op", ["and", "or", "xor"])
+def test_inplace_operators_trace_as_their_functional_op(op):
+    """``m &= x``, ``|=`` and ``^=`` trace (functionalized) to the IR's
+    elementwise op, as ``m = m & x`` does."""
+    def f(x, m):
+        m = m.clone()
+        getattr(m, f"__i{op}__")(x > 0)
+        return m
+
+    g, _, _ = _trace(f, ((2, 8), F32), ((2, 8), torch.bool))
+    assert _ops(g)[-1] == op and not any(o.endswith("_") for o in _ops(g))
+
+
+def test_scope_is_recorded_only_while_tracing():
+    """``named_scope`` nests its path while the tracer preserves node meta,
+    and does nothing on the run-time path."""
+    import torch.fx.traceback as fx_traceback
+
+    from repro_torch.scope import current_scope, named_scope
+
+    with named_scope("layer1"), named_scope("sub0"):
+        assert current_scope() == ""
+    with fx_traceback.preserve_node_meta():
+        with named_scope("layer1"), named_scope("sub0"):
+            assert current_scope() == "layer1/sub0"
+        assert current_scope() == ""
+
+
 def test_select_int_is_slice_plus_reshape():
     g, _, _ = _trace(lambda w: w[1] * 2, ((3, 4, 5), F32))
     assert _ops(g) == ["slice", "reshape", "mul"]
@@ -159,6 +193,26 @@ def test_verify_sharded_function_pairs():
     assert not no_psum.verified
     assert no_psum.bug_sites[0].src.startswith("test_torch_trace.py:")
 
+
+@pytest.mark.parametrize("pieces", [2, 8])
+def test_gather_cut_into_other_than_its_ranks_stays_unfolded(pieces):
+    """A dim-0 all_gather whose result is cut into as many pieces as the
+    group has ranks and concatenated along a dim is one tiled all_gather
+    along that dim; cut into any other count it is not, so the gather stays
+    along dim 0 with the split and concat after it."""
+    from repro_torch.parallel.ctx import _c10d
+
+    def gather(ctx, x, n):
+        y = _c10d().wait_tensor(_c10d().all_gather_into_tensor(x, 4, ctx._group()))
+        return torch.cat(torch.chunk(y, n, dim=0), dim=1)
+
+    x = ShapeDtype((8, 8, 3), F32)
+    for n, dim in ((4, 1), (pieces, 0)):
+        g, _, _ = trace_sharded(lambda ctx, x: gather(ctx, x, n), 4,
+                                (P(None, "model"),), x)
+        ag = [nd for nd in g if nd.op == "all_gather"]
+        assert len(ag) == 1 and ag[0].param("all_gather_dimension") == dim
+        assert ("concat" in _ops(g)) == (n != 4)
 
 # ------------------------------------------------------------- model traces
 @pytest.fixture(scope="module")
@@ -251,6 +305,36 @@ def test_faulty_template_generator_is_caught(monkeypatch):
     with a bug site in the lookup."""
     plan = Plan(tp=2, layers=1, seq=8, smoke=True)
     scen = plan.scenarios()[0]
+
+    def shifted(table, ids, rank):
+        V_loc = table.shape[0]
+        off = (rank + 1) * V_loc
+        local = (ids - off).clamp(0, V_loc - 1)
+        x = table[local]
+        mask = ((ids >= off) & (ids < off + V_loc))[..., None]
+        return x * mask.to(x.dtype)
+
+    monkeypatch.setattr(collectives, "vp_embed_partial", shifted)
+    monkeypatch.setattr(meta, "_generator_checked", {})
+    monkeypatch.setattr(meta, "_vp_embed_templates", {})
+    rep = _verify(build_pair("llama3_8b", plan, scen, stamp=False))
+    assert not rep.verified
+    assert any(b.src.startswith("test_torch_trace.py") for b in rep.bug_sites[:3])
+
+
+def test_sp_embedding_is_covered_and_a_shifted_offset_is_not(monkeypatch):
+    """Under sequence parallelism the meta rule covers the ``vp_embed_sp``
+    region (the partial lookup; the sequence reduce_scatter after it is
+    discharged by the collective rule), and a shifted offset in the partial
+    leaves the pair unverified, as without SP."""
+    plan = Plan(tp=2, layers=1, seq=8, smoke=True, sp=True)
+    scen = plan.scenarios()[0]
+    pair = build_pair("llama3_8b", plan, scen, stamp=False)
+    region = [n for n in pair.dist if n.scope == "vp_embed_sp"]
+    assert region and not any(n.op in ("all_reduce", "reduce_scatter") for n in region)
+    rs = [n for n in pair.dist if n.op == "reduce_scatter"]
+    assert rs and all(n.param("scatter_dimension") == 1 for n in rs)
+    assert _verify(pair).verified
 
     def shifted(table, ids, rank):
         V_loc = table.shape[0]

@@ -1,0 +1,194 @@
+"""The port's tracer against the JAX package's on the same small functions:
+the torch op and its ``jax.numpy`` counterpart lower to the same IR ops, with
+the same parameters where the rules read them.  The cases are the ops of the
+SSM layers (``F.pad``, ``F.softplus``, ``torch.cumsum``, ``torch.stack``,
+einsums over three operands, whose contraction order depends on the shapes),
+the decode step's cache write (``index_copy_`` at a wrapped and clamped
+index, traced functionalized), the sequence-parallel collectives, and the
+ATen spellings of a matmul, ``x[:, None]``, a unit-dim index, an f32
+product of bf16 operands and ``c / x``."""
+import jax
+import jax.numpy as jnp
+import pytest
+from jax import lax
+from jax.sharding import PartitionSpec as JP
+
+torch = pytest.importorskip("torch")
+F = torch.nn.functional
+
+from repro.compat import abstract_mesh  # noqa: E402
+from repro.core.trace import trace as jtrace  # noqa: E402
+from repro.core.trace import trace_sharded as jtrace_sharded  # noqa: E402
+from repro_torch.core.trace import ShapeDtype, trace, trace_sharded  # noqa: E402
+from repro_torch.models.attention import write_index  # noqa: E402
+from repro_torch.models.modules import einsum_f32  # noqa: E402
+from repro_torch.parallel.sharding import P  # noqa: E402
+
+F32 = (torch.float32, jnp.float32)
+BF16 = (torch.bfloat16, jnp.bfloat16)
+
+
+def _body(g):
+    return [n.op for n in g if n.op not in ("input", "const")]
+
+
+def _pair(tfn, jfn, *shapes):
+    """(torch graph, JAX graph) of ``tfn`` and ``jfn`` over ``shapes``, each
+    a (shape, (torch dtype, jnp dtype))."""
+    g, _, _ = trace(tfn, *[ShapeDtype(s, d[0]) for s, d in shapes])
+    jg, _, _ = jtrace(jfn, *[jax.ShapeDtypeStruct(s, d[1]) for s, d in shapes])
+    return g, jg
+
+
+def _param(g, op, key):
+    return [n.param(key) for n in g if n.op == op]
+
+
+def test_softplus_is_logaddexp():
+    g, jg = _pair(F.softplus, jax.nn.softplus, ((2, 5), F32))
+    assert _body(g) == _body(jg)
+    sel = next(n for n in g if n.op == "select")
+    jsel = next(n for n in jg if n.op == "select")
+    assert [g[i].op for i in sel.inputs] == [jg[i].op for i in jsel.inputs]
+
+
+def test_causal_pad_is_one_pad():
+    g, jg = _pair(lambda x: F.pad(x, (0, 0, 3, 0)),
+                  lambda x: jnp.pad(x, ((0, 0), (3, 0), (0, 0))), ((2, 6, 4), BF16))
+    # jnp.pad's constant 0 is a weakly typed int: converted, then the pad
+    assert _body(g) == _body(jg) == ["convert", "pad"]
+    assert _param(g, "convert", "new_dtype") == _param(jg, "convert", "new_dtype")
+    assert _param(g, "pad", "padding_config") == [((0, 0, 0), (3, 0, 0), (0, 0, 0))]
+    assert [tuple(map(tuple, c)) for c in _param(jg, "pad", "padding_config")] == \
+        _param(g, "pad", "padding_config")
+
+
+def test_cumsum_and_stack():
+    g, jg = _pair(lambda x: torch.stack([x.cumsum(-1), x]).permute(1, 0, 2),
+                  lambda x: jnp.stack([jnp.cumsum(x, axis=-1), x]).transpose(1, 0, 2),
+                  ((3, 4), F32))
+    assert _body(g) == _body(jg) == ["cumsum", "broadcast", "broadcast", "concat",
+                                     "transpose"]
+    assert _param(g, "cumsum", "axis") == _param(jg, "cumsum", "axis") == [1]
+
+
+# ATen spellings that jnp writes as one op (or as none): a 3-D activation
+# times a matrix, x[:, None] and x[:, None, None], indexing a unit dim, the
+# f32 product of bf16 operands, c / x
+@pytest.mark.parametrize("tfn,jfn,shapes", [
+    (lambda x, w: x @ w, lambda x, w: x @ w, [((2, 8, 16), BF16), ((16, 4), BF16)]),
+    (lambda x: x[:, None] * 2, lambda x: x[:, None] * 2, [((3, 4), F32)]),
+    (lambda x: x[:, :, None, None] * 2, lambda x: x[:, :, None, None] * 2, [((3, 4), F32)]),
+    (lambda x: x[:, 0] * 2, lambda x: x[:, 0] * 2, [((3, 1, 4), F32)]),
+    (lambda q, k: einsum_f32("bqd,bkd->bqk", q, k),
+     lambda q, k: jnp.einsum("bqd,bkd->bqk", q, k, preferred_element_type=jnp.float32),
+     [((2, 8, 16), BF16), ((2, 4, 16), BF16)]),
+    (lambda x: 1.0 / (x + 2), lambda x: 1.0 / (x + 2), [((4,), F32)]),
+], ids=["matmul", "expand_dims", "expand_dims2", "index_unit_dim", "preferred_f32",
+        "rdiv"])
+def test_jnp_spellings_trace_as_jnp(tfn, jfn, shapes):
+    g, jg = _pair(tfn, jfn, *shapes)
+    assert _body(g) == _body(jg)
+    for op, key in (("dot", "dimension_numbers"), ("broadcast", "broadcast_dimensions"),
+                    ("slice", "start_indices"), ("slice", "limit_indices")):
+        assert _param(g, op, key) == [_freeze(v) for v in _param(jg, op, key)]
+    assert [(n.op, n.dtype) for n in g if n.op not in ("input", "const")] == \
+        [(n.op, n.dtype) for n in jg if n.op not in ("input", "const")]
+
+
+def _freeze(v):
+    return tuple(_freeze(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+# the SSD scan's and the SSM decode step's three-operand einsums, at SMOKE
+# and full-width sizes (P, N): opt_einsum's order differs between the two
+@pytest.mark.parametrize("P_,N", [(32, 16), (64, 128)])
+@pytest.mark.parametrize("eq,dims", [
+    ("bckn,bckh,bckhp->bchpn", "bckn,bckh,bckhp"),
+    ("bcqn,bchpn,bcqh->bcqhp", "bcqn,bchpn,bcqh"),
+    ("bh,bn,bhp->bhpn", "bh,bn,bhp"),
+    ("bchqk,bckhp->bcqhp", "bchqk,bckhp"),
+    ("bkc,kc->bc", "bkc,kc"),
+])
+def test_einsum_follows_jnp_contraction_order(eq, dims, P_, N):
+    size = dict(b=2, c=2, k=8, q=8, h=3, p=P_, n=N)
+    shapes = [(tuple(size[c] for c in t), F32) for t in dims.split(",")]
+    g, jg = _pair(lambda *a: torch.einsum(eq, *a), lambda *a: jnp.einsum(eq, *a), *shapes)
+    assert _body(g) == _body(jg)
+    assert _param(g, "dot", "dimension_numbers") == _param(jg, "dot", "dimension_numbers")
+    assert _param(g, "transpose", "permutation") == _param(jg, "transpose", "permutation")
+    assert [n.shape for n in g if n.op == "dot"] == [n.shape for n in jg if n.op == "dot"]
+
+
+def test_cache_write_is_dynamic_update_slice():
+    """``index_copy_`` of one slot at ``write_index(position)`` traces, in a
+    functionalized step, to ``dynamic_update_slice`` at the wrapped index,
+    with the written buffer as the output; two writes at one index each
+    wrap it, and neither clamps (the op does), as two
+    ``lax.dynamic_update_slice_in_dim`` calls trace."""
+    def step(k, v, new, pos):
+        w = write_index(pos, k.shape[2])[None]
+        k.index_copy_(2, w, new)
+        v.index_copy_(2, w, new * 2)
+        return k * 1, v
+
+    def jstep(k, v, u, p):
+        return (lax.dynamic_update_slice_in_dim(k, u, p, axis=2) * 1,
+                lax.dynamic_update_slice_in_dim(v, u * 2, p, axis=2))
+
+    buf, upd = (2, 4, 8, 3), (2, 4, 1, 3)
+    g, ins, outs = trace(step, ShapeDtype(buf, torch.bfloat16), ShapeDtype(buf, torch.bfloat16),
+                         ShapeDtype(upd, torch.bfloat16), ShapeDtype((), torch.int64))
+    jg, _, _ = jtrace(jstep, jax.ShapeDtypeStruct(buf, jnp.bfloat16),
+                      jax.ShapeDtypeStruct(buf, jnp.bfloat16),
+                      jax.ShapeDtypeStruct(upd, jnp.bfloat16),
+                      jax.ShapeDtypeStruct((), jnp.int32))
+    assert sorted(_body(g)) == sorted(_body(jg))
+    dus = [n for n in g if n.op == "dynamic_update_slice"]
+    assert [list(n.inputs[:1]) for n in dus] == [ins[:1], ins[1:2]]
+    starts = [g[n.inputs[4]] for n in dus]
+    assert [n.op for n in starts] == ["select", "select"] and starts[0].id != starts[1].id
+    assert len(outs) == 2
+
+
+def test_written_stacked_buffers_become_outputs():
+    """A step that writes each slot of a stacked buffer in place returns
+    ``stack`` of the slot values, as the JAX step returns the new caches;
+    reads after a write see the written value, not the input."""
+    def step(buf, x):
+        for i in range(buf.shape[0]):
+            buf[i].copy_(buf[i] * 2 + x)
+            x = buf[i].sum(0)  # read back after the write
+        return x, buf
+
+    g, ins, outs = trace(step, ShapeDtype((3, 4, 5), torch.float32),
+                         ShapeDtype((5,), torch.float32))
+    assert [g[o].op for o in outs] == ["reduce_sum", "concat"]
+    assert "copy_" not in _body(g) and "select_scatter" not in _body(g)
+    assert g[outs[1]].shape == (3, 4, 5)
+    assert len([n for n in g if n.op == "mul"]) == 3  # one write a slot, no copy
+
+
+def test_sequence_parallel_collectives_follow_lax():
+    """``sp_enter``/``sp_exit`` of a sequence-parallel context trace to one
+    reduce_scatter and one all_gather along the sequence, as
+    ``lax.psum_scatter``/``lax.all_gather`` with ``tiled=True``."""
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    def tfn(ctx, x):
+        sp = ParallelCtx.tensor_parallel(4, rank=ctx.rank, sp=True)
+        return sp.sp_exit(sp.sp_enter(x) * 2)
+
+    g, _, _ = trace_sharded(tfn, 4, (P(),), ShapeDtype((2, 8, 3), torch.float32))
+    mesh = abstract_mesh((4,), ("model",))
+    jg, _, _ = jtrace_sharded(
+        lambda x: lax.all_gather(lax.psum_scatter(x, "model", scatter_dimension=1,
+                                                  tiled=True) * 2,
+                                 "model", axis=1, tiled=True),
+        mesh, (JP(),), JP(), jax.ShapeDtypeStruct((2, 8, 3), jnp.float32))
+    assert _body(g) == _body(jg) == ["reduce_scatter", "mul", "all_gather"]
+    assert _param(g, "reduce_scatter", "scatter_dimension") == [1]
+    assert _param(g, "all_gather", "all_gather_dimension") == [1]
+    for op, key in (("reduce_scatter", "scatter_dimension"),
+                    ("all_gather", "all_gather_dimension")):
+        assert _param(g, op, key) == _param(jg, op, key)

@@ -1,8 +1,10 @@
 """The port's verification API and CLI against the JAX package's: verdicts of
-llama3_8b and qwen3_4b tp-forward at tp 2 and 4 (full width, 2 layers), the
-CLI's exit codes, the warm disk cache, the stamped full-depth trace, and the
-llama3_8b tp4 campaign cells.  The per-op histogram of the torch trace
-against the JAX trace of the same pair is printed as information."""
+llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b and chatglm3_6b for tp-forward,
+tp-decode and sp-forward at tp 2 and 4 (full width, 2 layers), the CLI's
+exit codes, the warm disk cache, the stamped full-depth trace, and the
+llama3_8b tp4 and mamba2_130m tp4 campaign cells.  Each verdict case also
+holds the port's IR to the JAX IR of the same pair op by op, up to the
+differences listed at ``EMBED_DIFF``."""
 import collections
 import json
 
@@ -16,24 +18,64 @@ from repro.verify import cli as jcli  # noqa: E402
 from repro.verify.campaign import run_campaign as jrun_campaign  # noqa: E402
 from repro.verify.scenarios import build_pair as jbuild_pair  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.verify import Plan, Session, run_campaign  # noqa: E402
 from repro_torch.verify import cli  # noqa: E402
 from repro_torch.verify.scenarios import build_pair  # noqa: E402
 
 LAYERS = 2
+ARCHS = ["llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b"]
+SCENARIOS = {"tp-forward": {}, "tp-decode": {"mode": "decode"}, "sp-forward": {"sp": True}}
 
 
+# The port's IR against the JAX package's for the same pair, op by op, over
+# the nodes the outputs depend on (the JAX tracer keeps dead nodes: the dist
+# graph's global-shape inputs, an SSD scan's unused final state).  What stays
+# different (ROADMAP queue 3): the single-device embedding's NaN fill, a
+# select after the gather in the port (base); jnp.take's index wrap inside
+# vp_embed (dist); and in a forward, one convert a SSM layer for _segsum's
+# -inf, a weakly typed Python scalar in jnp.
+EMBED_DIFF = {"base": {"const": 2, "broadcast": 2, "ge": 1, "lt": 1, "and": 1,
+                       "select": 1, "min": 1, "max": 1},
+              "dist": {"lt": -1, "add": -1, "select": -1, "broadcast": -1}}
+
+
+def _live_ops(g) -> collections.Counter:
+    live = set(g.toposort(g.outputs))
+    return collections.Counter(n.op for n in g if n.id in live)
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    """One session of each package for the verdict cases: the scenarios of
+    one arch share its base trace, as they do in a sweep."""
+    with Session() as s, JSession() as js:
+        yield s, js
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("arch", ["llama3_8b", "qwen3_4b"])
-def test_verdict_matches_jax(arch, tp):
-    with Session() as s:
-        got = s.verify(arch, Plan(tp=tp, layers=LAYERS))
-    with JSession() as s:
-        want = s.verify(arch, JPlan(tp=tp, layers=LAYERS))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_verdict_matches_jax(arch, tp, scenario, sessions):
+    s, js = sessions
+    got = s.verify(arch, Plan(tp=tp, layers=LAYERS, **SCENARIOS[scenario]))
+    want = js.verify(arch, JPlan(tp=tp, layers=LAYERS, **SCENARIOS[scenario]))
     assert got.verified == want.verified is True
     assert got.outputs_ok == want.outputs_ok
     assert [r["scenario"] for r in got.scenarios] == [r["scenario"] for r in want.scenarios]
+    assert [r["scenario"] for r in got.scenarios] == [scenario]
     assert not got.stamped  # 2 layers: fewer than TRACE_PERIODS + 1 periods
+    plan, jplan = (P(tp=tp, layers=LAYERS, **SCENARIOS[scenario]) for P in (Plan, JPlan))
+    pair = build_pair(arch, plan, plan.scenarios()[0], stamp=False)
+    jpair = jbuild_pair(arch, jplan, jplan.scenarios()[0], stamp=False)
+    cfg = get_config(arch)
+    segsum = 0 if scenario == "tp-decode" else sum(
+        not cfg.is_attn_layer(i) for i in range(LAYERS))
+    for side in ("base", "dist"):
+        t, j = _live_ops(getattr(pair, side)), _live_ops(getattr(jpair, side))
+        diff = {op: t[op] - j[op] for op in t | j if t[op] != j[op]}
+        want = dict(EMBED_DIFF[side], **({"convert": -segsum} if segsum else {}))
+        assert diff == want, (side, diff)
 
 
 def test_full_depth_is_stamped():
@@ -50,8 +92,8 @@ def test_full_depth_is_stamped():
     (["llama3_8b", "--tp", "4", "--layers", "2", "--inject", "drop_all_reduce"], 1, 1),
     (["llama3_8b", "--tp", "1"], 2, 2),
     (["no_such_arch", "--tp", "4"], 2, 2),
-    (["llama3_8b", "--tp", "4", "--decode"], 2, None),
-    (["llama3_8b", "--tp", "4", "--sp"], 2, None),
+    (["llama3_8b", "--dp", "2"], 2, None),
+    (["llama3_8b", "--grad", "--dp", "2"], 2, None),
 ])
 def test_cli_exit_codes_match_jax(argv, code, jax_code, capsys):
     assert cli.main(argv + ["--quiet"]) == code
@@ -69,7 +111,8 @@ def test_cli_unported_and_lint_exit_2(capsys):
         Session().verify("llama3_8b", Plan(tp=4, layers=LAYERS), lint=True)
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
-    assert "tp-forward" in out and "llama3_8b" in out and "tp-decode" not in out
+    assert "tp-forward" in out and "llama3_8b" in out and "dp-forward" not in out
+    assert "tp-decode" in out and "sp-forward" in out and "chatglm3_6b" in out
 
 
 def test_warm_disk_cache_gives_the_same_canonical_report(tmp_path, capsys):
@@ -101,11 +144,25 @@ def test_campaign_cells_match_jax():
     assert "lint tier: not ported" in got.summary()
 
 
+@pytest.mark.parametrize("arch,scenarios,detected", [
+    ("llama3_8b", ["tp-decode", "sp-forward"], 15),
+    ("mamba2_130m", ["tp-forward"], 8),
+])
+def test_serving_sp_and_ssm_campaign_cells_match_jax(arch, scenarios, detected):
+    got = run_campaign([arch], tp=4, scenarios=scenarios)
+    want = jrun_campaign([arch], tp=4, scenarios=scenarios)
+    cells = {(c.scenario, c.injector): (c.outcome, c.localized) for c in got.cells}
+    assert cells == {(c.scenario, c.injector): (c.outcome, c.localized)
+                     for c in want.cells}
+    assert got.ok and got.detected == detected and got.missed == 0
+    assert got.false_positives == 0 and got.localization_rate == 1.0
+
+
 def test_unported_campaign_scenarios_are_not_missed():
-    rep = run_campaign(["llama3_8b"], tp=4, scenarios=["tp-forward", "tp-decode"],
+    rep = run_campaign(["llama3_8b"], tp=4, dp=2, scenarios=["tp-forward", "dp-forward"],
                        injectors=["drop_all_reduce"])
-    decode = [c for c in rep.cells if c.scenario == "tp-decode"]
-    assert decode and {c.outcome for c in decode} == {"not_ported"}
+    dp = [c for c in rep.cells if c.scenario == "dp-forward"]
+    assert dp and {c.outcome for c in dp} == {"not_ported"}
     assert rep.ok and rep.missed == 0 and rep.detected == 1
     assert cli.campaign_main(["--fuzz-only", "--seeds", "2", "--quiet"]) == 0
 
