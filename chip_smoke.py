@@ -14,15 +14,22 @@ plain PyTorch version on the card, with times), then for each model at full
 width, with random weights from a seeded generator: prefill (through the
 kernels, checked against the reference path) and serve (the engine answers
 four requests; prefill logits are checked against the engine path's
-``decode_step``).  The models are qwen3_4b, qwen1_5_4b (qkv biases) and
-chatglm3_6b (half-dim RoPE, 2 KV heads padded to 16), all through flash
-attention, and mamba2_130m (the SSD scan).  Then the verifier's main path:
-verify (the port's ``Session`` proves, at tp 4 at full width and depth,
-tp-forward and tp-decode for llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b
-and chatglm3_6b, and sp-forward for llama3_8b; host seconds), campaign
+``decode_step``).  The models are qwen3_4b, qwen1_5_4b (qkv biases),
+chatglm3_6b (half-dim RoPE, 2 KV heads padded to 16) and gemma_2b (head dim
+256, GeGLU, tied embeddings), all through flash attention, and mamba2_130m
+(the SSD scan).  Then the verifier's main path: verify (the port's
+``Session`` proves, at full width and depth, tp-forward and tp-decode at tp
+4 for llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b, chatglm3_6b and
+gemma_2b, sp-forward at tp 4 for llama3_8b and gemma_2b, tp-forward at tp 16
+for llama3_70b and llama3_405b, and dp-forward at dp 2 for gemma_2b and
+llama3_8b; host seconds and memo hits beside the JAX reference's), campaign
 (every registered injector on llama3_8b's tp4 tp-forward, tp-decode and
-sp-forward pairs and mamba2_130m's tp-forward pair, each cell held to the
-JAX reference's outcome), tp_forward (the per-rank TP program the verifier
+sp-forward pairs, mamba2_130m's tp-forward pair and gemma_2b's tp-forward
+and dp-forward pairs, each cell held to the JAX reference's outcome),
+dp_forward (the verifier's dp-forward program on two gloo ranks sharing the
+card, gemma_2b at full width and depth, flash attention on every layer of
+every rank; each rank's logits held to its rows of the single-device
+forward), tp_forward (the per-rank TP program the verifier
 proves, run on four gloo ranks sharing the card, llama3_8b at full width
 with two layers, flash attention on every layer of every rank; logits
 gathered on rank 0 and held to the single-device model), tp_decode (the
@@ -141,11 +148,31 @@ CAMPAIGN_REFERENCE = {
         "wrong_collective_op", "wrong_replica_groups"),
     ("mamba2_130m", "tp-forward"): _reference(
         "wrong_all_gather_dim", "wrong_scatter_dim", "wrong_transpose"),
+    ("gemma_2b", "tp-forward"): _reference("wrong_all_gather_dim", "wrong_scatter_dim"),
+    # dp-forward (dp 2) has no collective: only the injectors that rewrite
+    # local ops find a site
+    ("gemma_2b", "dp-forward"): _reference(
+        "drop_all_reduce", "duplicate_all_reduce", "wrong_all_gather_dim",
+        "wrong_collective_axis", "wrong_collective_op", "wrong_replica_groups",
+        "wrong_scatter_dim"),
 }
-# The plans the verify phase proves at tp 4, full width and depth.
-VERIFY_PLANS = [(arch, kind) for kind in ("tp-forward", "tp-decode")
-                for arch in ("llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b",
-                             "chatglm3_6b")] + [("llama3_8b", "sp-forward")]
+DP_SIZE = 2
+# The plans the verify phase proves at full width and depth, (arch, scenario,
+# axis size), each with the memo hits of ``python -m repro.verify <arch>
+# --tp N [--decode | --sp]`` (``--dp 2``), the JAX reference, on the CPU
+# (written here as data).  llama3_70b and llama3_405b at tp 16 are the
+# paper's Table 2 L2 and L3 rows.
+VERIFY_PLANS = {
+    ("llama3_8b", "tp-forward", TP_SIZE): 30, ("qwen3_4b", "tp-forward", TP_SIZE): 34,
+    ("mamba2_130m", "tp-forward", TP_SIZE): 22, ("qwen1_5_4b", "tp-forward", TP_SIZE): 38,
+    ("chatglm3_6b", "tp-forward", TP_SIZE): 26, ("gemma_2b", "tp-forward", TP_SIZE): 16,
+    ("llama3_8b", "tp-decode", TP_SIZE): 61, ("qwen3_4b", "tp-decode", TP_SIZE): 69,
+    ("mamba2_130m", "tp-decode", TP_SIZE): 45, ("qwen1_5_4b", "tp-decode", TP_SIZE): 77,
+    ("chatglm3_6b", "tp-decode", TP_SIZE): 53, ("gemma_2b", "tp-decode", TP_SIZE): 33,
+    ("llama3_8b", "sp-forward", TP_SIZE): 30, ("gemma_2b", "sp-forward", TP_SIZE): 16,
+    ("llama3_70b", "tp-forward", 16): 78, ("llama3_405b", "tp-forward", 16): 124,
+    ("gemma_2b", "dp-forward", DP_SIZE): 16, ("llama3_8b", "dp-forward", DP_SIZE): 30,
+}
 # llama3_8b TP-4 serving step (TP_LAYERS layers, batch 2) against the
 # single-device decode_step: a TP_DECODE_PROMPT-token prompt fed one
 # position at a time, then TP_DECODE_STEPS more, into caches of
@@ -159,12 +186,30 @@ VERIFY_PLANS = [(arch, kind) for kind in ("tp-forward", "tp-decode")
 TP_DECODE_BATCH, TP_DECODE_PROMPT, TP_DECODE_STEPS, TP_DECODE_MAX_LEN = 2, 32, 8, 64
 TP_DECODE_BOUNDS = (3e-2, 0.2)
 TP_DECODE_CACHE_REL_RMS = 2e-2
+# gemma_2b on DP_SIZE ranks, tokens DP_TOKENS split by rows, against the
+# single-device forward of the whole batch, both through the kernels,
+# (relative RMS error, max abs error).  DP changes only how many rows each
+# matrix product takes.  A CPU emulation of the same comparison
+# (scripts/tp_logit_bounds.py --dp 2: full width and depth, tokens (2,
+# 1024), run on the H100 machine's host) read 0.0 in bf16 and f32: the rows
+# come out bit for bit.  On the card a matrix library may pick another
+# schedule for 1024 rows than for 2048, which reorders the f32 sums inside
+# a product, a smaller change than TP's bf16 partial sums; TP's bounds hold
+# it.  A rank that computes another rank's rows reads about 1.4.
+DP_TOKENS = (2, 1024)
+DP_LOGIT_BOUNDS = TP_LOGIT_BOUNDS
 
-FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal; the first three are timed
+FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, and the name of a main
+    # path's shape, which is timed (None: checked only)
     # qwen3_4b's prefill shape, and chatglm3_6b's (32 q-heads, 2 KV heads padded to 16)
-    (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True),
-    (1, 8, 4, 1024, 1024, 128, torch.bfloat16, True),  # llama3_8b TP-4, per rank
-    (2, 32, 32, 1024, 1024, 128, torch.bfloat16, True),  # qwen1_5_4b prefill (MHA)
+    (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True, "qwen3_4b"),
+    (1, 8, 4, 1024, 1024, 128, torch.bfloat16, True, "tp_forward"),  # llama3_8b TP-4, a rank
+    (2, 32, 32, 1024, 1024, 128, torch.bfloat16, True, "qwen1_5_4b"),  # prefill (MHA)
+    # gemma_2b (head dim 256, 1 KV head padded to 16): its prefill, a TP-4
+    # rank's shape and a DP-2 rank's (the dp_forward phase)
+    (2, 16, 16, 1024, 1024, 256, torch.bfloat16, True, "gemma_2b"),
+    (1, 4, 4, 1024, 1024, 256, torch.bfloat16, True, "gemma_2b_tp4"),
+    (1, 16, 16, 1024, 1024, 256, torch.bfloat16, True, "gemma_2b_dp2"),
     (1, 8, 2, 96, 160, 32, torch.float32, False),  # not a multiple of the tiles
     (1, 8, 2, 96, 160, 32, torch.bfloat16, False),
     (1, 4, 2, 96, 160, 64, torch.bfloat16, True),  # causal Sq < Sk, top-left
@@ -178,7 +223,17 @@ FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal; the first three are timed
     (2, 8, 1, 330, 200, 64, torch.bfloat16, True),
     (2, 16, 4, 257, 257, 128, torch.bfloat16, False),
     (2, 8, 1, 100, 100, 32, torch.bfloat16, True),
+    # D = 256 (one consumer warpgroup, 64-row q-tiles): Sq, Sk past a tile
+    # with B*H > 1, causal Sq < Sk and Sq > Sk, non-causal, MQA (Hkv = 1),
+    # and the f32 path
+    (2, 4, 2, 200, 330, 256, torch.bfloat16, True),
+    (2, 4, 1, 330, 200, 256, torch.bfloat16, True),
+    (2, 8, 2, 257, 257, 256, torch.bfloat16, False),
+    (2, 8, 1, 128, 128, 256, torch.bfloat16, True),
+    (1, 4, 1, 100, 160, 256, torch.float32, True),
+    (1, 2, 2, 96, 130, 256, torch.float32, False),
 ]
+FA_CASES = [c if len(c) == 9 else (*c, None) for c in FA_CASES]
 RN_CASES = [  # rows, D, dtype; the first two are timed
     (2048, 2560, torch.bfloat16),  # d_model rows of a (2, 1024) prefill
     (2 * 32 * 1024, 128, torch.bfloat16),  # its q-norm rows
@@ -418,13 +473,12 @@ def phase_resources() -> None:
     emit("kernel resources", **out)
 
 
-def phase_flash(gen) -> list[dict]:
-    """Every FA_CASES row against the plain version; the first three (the
-    qwen3_4b and chatglm3_6b prefill shape, the tp_forward phase's per-rank
-    shape and the qwen1_5_4b prefill shape) are timed against the plain
-    version and SDPA, and their rows returned."""
-    rows = []
-    for i, (B, Hq, Hkv, Sq, Sk, D, dt, causal) in enumerate(FA_CASES):
+def phase_flash(gen) -> dict:
+    """Every FA_CASES row against the plain version; the rows of a main
+    path's shape are timed against the plain version and SDPA, and returned
+    by name."""
+    rows = {}
+    for B, Hq, Hkv, Sq, Sk, D, dt, causal, name in FA_CASES:
         q = randn(gen, (B, Hq, Sq, D), dt)
         k = randn(gen, (B, Hkv, Sk, D), dt)
         v = randn(gen, (B, Hkv, Sk, D), dt)
@@ -434,7 +488,7 @@ def phase_flash(gen) -> list[dict]:
         err = close(out, ref, FA_TOL[dt])
         case = {"shape": [B, Hq, Hkv, Sq, Sk, D], "dtype": str(dt), "causal": causal,
                 "max_abs_err": err, "tol": FA_TOL[dt]}
-        if i < 3:  # a main path's shape: time it
+        if name:  # a main path's shape: time it
             pairs = sum(min(r + 1, Sk) for r in range(Sq)) if causal else Sq * Sk
             args = (q, k, v)
             row = {"shape": case["shape"], "max_abs_err": err}
@@ -446,8 +500,8 @@ def phase_flash(gen) -> list[dict]:
                 *a, is_causal=causal, enable_gqa=True), args)
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes(q, k, v, out), (4.0 * D * B * Hq * pairs, dt))
-            case.update(row)
-            rows.append(row)
+            case.update(row, path=name)
+            rows[name] = row
         emit("kernel flash_attention", **case)
     return rows
 
@@ -635,10 +689,10 @@ def host_cpu() -> str:
 
 
 def phase_verify(card: str) -> None:
-    """The port's verifier proves each of VERIFY_PLANS at tp 4 at full width
-    and depth (CONFIG, 3 traced block periods stamped to the full depth).
-    Host seconds on the machine that has the card: the verifier executes
-    nothing on it."""
+    """The port's verifier proves each of VERIFY_PLANS at full width and
+    depth (CONFIG; tp and sp plans trace 3 block periods and stamp them to
+    the full depth), with the JAX reference's memo hits.  Host seconds on
+    the machine that has the card: the verifier executes nothing on it."""
     cpu, failed = host_cpu(), []
     # the process's first make_fx pays for imports and dispatcher caches:
     # time it apart, on a small pair, so each arch's trace_s is steady state
@@ -648,39 +702,93 @@ def phase_verify(card: str) -> None:
     emit("verify warm-up", arch="llama3_8b SMOKE", tp=2, seconds=time.perf_counter() - t0,
          host_cpu=cpu, card=card)
     plans = {"tp-forward": {}, "tp-decode": {"mode": "decode"}, "sp-forward": {"sp": True}}
-    for arch, kind in VERIFY_PLANS:
+    for (arch, kind, size), jax_memo_hits in VERIFY_PLANS.items():
+        plan = (Plan(dp=size) if kind == "dp-forward"
+                else Plan(tp=size, **plans[kind]))
         with Session() as session:
-            rep = session.verify(arch, Plan(tp=TP_SIZE, **plans[kind]))
-        emit("verify", arch=arch, scenario=kind, tp=TP_SIZE, verified=rep.verified,
+            rep = session.verify(arch, plan)
+        emit("verify", arch=arch, scenario=kind, size=size, verified=rep.verified,
              stamped=rep.stamped, base_nodes=rep.num_base_nodes,
              dist_nodes=rep.num_dist_nodes, facts=rep.num_facts,
+             memo_hits=rep.memo.memo_hits, jax_memo_hits=jax_memo_hits,
              trace_s=rep.timings.trace_s, stamp_s=rep.timings.stamp_s,
              rules_s=rep.timings.rules_s, total_s=rep.elapsed_s, host_cpu=cpu, card=card,
              bug_sites=[{"src": b.src, "category": b.category} for b in rep.bug_sites[:3]])
-        if not (rep.verified and rep.stamped):
-            failed.append(f"{arch} {kind}")
+        # dp-forward traces the full depth, as the reference does
+        if not (rep.verified and (rep.stamped or kind == "dp-forward")):
+            failed.append(f"{arch} {kind} {size}: not verified from a stamped trace")
+        if rep.memo.memo_hits != jax_memo_hits:
+            failed.append(f"{arch} {kind} {size}: {rep.memo.memo_hits} memo hits, the "
+                          f"reference takes {jax_memo_hits}")
     if failed:
-        raise AssertionError(f"not verified from a stamped trace at tp {TP_SIZE}: {failed}")
+        raise AssertionError(f"verify phase: {failed}")
 
 
 def phase_campaign() -> None:
     """Every registered injector on each (arch, scenario) pair of
-    CAMPAIGN_REFERENCE at tp 4; each cell's outcome must be the JAX
+    CAMPAIGN_REFERENCE at tp 4 (dp 2); each cell's outcome must be the JAX
     reference's, and every detected cell localized."""
     failed = []
     for (arch, kind), want in CAMPAIGN_REFERENCE.items():
         t0 = time.perf_counter()
-        rep = run_campaign([arch], tp=TP_SIZE, scenarios=[kind])
+        rep = run_campaign([arch], tp=TP_SIZE, dp=DP_SIZE, scenarios=[kind])
         seconds = time.perf_counter() - t0
         got = {c.injector: c.outcome for c in rep.cells}
         localized = sum(c.localized for c in rep.cells if c.outcome == "detected")
-        emit("campaign", arch=arch, tp=TP_SIZE, scenario=kind, detected=rep.detected,
+        emit("campaign", arch=arch, tp=TP_SIZE, dp=DP_SIZE, scenario=kind,
+             detected=rep.detected,
              missed=rep.missed, false_positives=rep.false_positives, localized=localized,
              cells=got, seconds=seconds)
         if got != want or not rep.ok or localized != rep.detected:
             failed.append((arch, kind, got))
     if failed:
         raise AssertionError(f"campaign cells differ from the reference: {failed}")
+
+
+def dp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
+    """One rank of the dp_forward phase (runs in a spawned process): a
+    warm-up forward, then one forward with the kernels' counts read around
+    it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spmd.dp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda")
+    reset_counts()
+    out = spmd.dp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda")
+    return {**out, "launches": counts()}
+
+
+def phase_dp_forward(gen) -> list:
+    """The verifier's dp-forward program on DP_SIZE gloo ranks that share
+    the card: gemma_2b at full width and depth, bf16, through the kernels;
+    each rank draws the whole single-device parameter set from one seed and
+    runs the forward pass on its rows of DP_TOKENS.  Each rank's logits are
+    held to its rows of the single-device forward of the whole batch."""
+    cfg = get_config("gemma_2b")
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
+    tokens = torch.randint(0, cfg.vocab, DP_TOKENS, generator=gen, device="cuda").cpu()
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        ref = model.forward(params, {"tokens": tokens.cuda()})
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spmd.run(dp_rank, DP_SIZE, (cfg, seed, tokens), timeout=600)
+    seconds = time.perf_counter() - t0
+    rows = DP_TOKENS[0] // DP_SIZE
+    checks = [logit_check(f"dp_forward rank {r} vs single device",
+                          out["logits"].cuda(), ref[r * rows:(r + 1) * rows], DP_LOGIT_BOUNDS)
+              for r, out in enumerate(ranks)]
+    launches = [r["launches"] for r in ranks]
+    want = {"flash_attention": cfg.n_layers, "rmsnorm": 0, "ssd_scan": 0}
+    emit("dp_forward", arch=cfg.name, dp=DP_SIZE, layers=cfg.n_layers,
+         tokens=list(DP_TOKENS), dtype=cfg.dtype, backend="gloo",
+         flash_shape_per_rank=[rows, cfg.heads, cfg.kv_heads, DP_TOKENS[1], DP_TOKENS[1],
+                               cfg.hd], launches_per_rank=launches,
+         forward_ms_per_rank=[r["ms"] for r in ranks], seconds=seconds, per_rank=checks)
+    if any(n != want for n in launches):
+        raise AssertionError(f"each rank's forward launched {launches}, expected {want}")
+    return launches
 
 
 def tp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
@@ -858,7 +966,7 @@ def main() -> int:
     with torch.inference_mode():
         phase_device()
         phase_resources()
-        fa_row, fa_tp_row, fa_qwen15_row = phase_flash(gen)
+        fa_rows = phase_flash(gen)
         rn_row = phase_rmsnorm(gen)
         ssd_row = phase_ssd(gen_ssm)
         cfg = get_config("qwen3_4b")
@@ -869,10 +977,13 @@ def main() -> int:
         del model, params
         torch.cuda.empty_cache()
         dense_launches = {}
-        for arch in ("qwen1_5_4b", "chatglm3_6b"):
+        for arch in ("qwen1_5_4b", "chatglm3_6b", "gemma_2b"):
             cfg = get_config(arch)
             model = Model(cfg, device="cuda")
             params = model.init(gen)
+            if arch == "gemma_2b" and ("lm_head" in params or cfg.mlp_act != "geglu"
+                                       or "wg" not in params["blocks"][0]["mlp"]):
+                raise AssertionError("gemma_2b: expected a tied head and a GeGLU MLP")
             dense_launches[arch] = phase_prefill(cfg, model, params, gen, (2, 1024))
             phase_serve(cfg, model, params)
             del model, params
@@ -887,19 +998,21 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_verify(card)
     phase_campaign()
+    dp_launches = phase_dp_forward(gen)
     tp_launches = phase_tp_forward(gen)
     decode_launches = phase_tp_decode(gen)
     phase_serve_verified()
     paths = {"qwen3_4b prefill": launches,
              **{f"{arch} prefill": n for arch, n in dense_launches.items()},
-             "mamba2_130m prefill": ssm_launches, "tp_forward, each rank": tp_launches,
+             "mamba2_130m prefill": ssm_launches, "dp_forward, each rank": dp_launches,
+             "tp_forward, each rank": tp_launches,
              "tp_decode, each rank": decode_launches}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
-         "launches": launches["flash_attention"], **fa_row,
-         "tp_forward_shape": fa_tp_row, "qwen1_5_4b_shape": fa_qwen15_row},
+         "launches": launches["flash_attention"], **fa_rows["qwen3_4b"],
+         **{f"{name}_shape": row for name, row in fa_rows.items() if name != "qwen3_4b"}},
         {"name": "rmsnorm", "route": "triton",
          "source": "src/repro_torch/kernels/rmsnorm.py",
          "replaces": "src/repro/kernels/rmsnorm.py:22",
@@ -914,7 +1027,7 @@ def main() -> int:
     for row in kernels:  # every main path's count, read around that path
         row["launches_by_path"] = {path: [c[row["name"]] for c in n] if isinstance(n, list)
                                    else n[row["name"]] for path, n in paths.items()}
-    extra = ("launches_by_path", "tp_forward_shape", "qwen1_5_4b_shape")
+    extra = ("launches_by_path", *(f"{name}_shape" for name in fa_rows if name != "qwen3_4b"))
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

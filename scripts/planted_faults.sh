@@ -13,6 +13,9 @@
 #   fa_last_kv_stale      the producer fills the last KV stage of each q-tile
 #                         with the previous tile's keys: the last K tile is
 #                         dropped
+#   fa_d256_last_q_box    at head dim 256 the last 64-column box of each Q
+#                         tile is never loaded: the producer fills it with
+#                         the third box's columns
 # Faults in csrc/ssd_scan.cu (K3):
 #   ssd_carry_dropped     the incoming state's contribution to y (y_off) is
 #                         dropped after the first chunk
@@ -34,13 +37,16 @@
 #   sp_gather_wrong_dim   sp_exit gathers along the hidden dim, then
 #                         reshapes to the sequence-gathered shape
 #                         (parallel/ctx.py)
+# A fault in the data-parallel program (caught by the dp_forward phase):
+#   dp_rank_rows_swapped  each rank runs the forward on the other rank's
+#                         rows of the batch (parallel/spmd.py)
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
 shift $(( $# > 0 ? 1 : 0 ))
-faults=${*:-fa_diagonal_unmasked fa_last_kv_stale ssd_carry_dropped ssd_state_not_decayed \
-ssd_slice_offset tp_attn_psum_dropped tp_vp_embed_shifted decode_cache_head_offset \
-sp_gather_wrong_dim}
+faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box ssd_carry_dropped \
+ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped tp_vp_embed_shifted \
+decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
@@ -58,6 +64,10 @@ for name in $faults; do
           mbar_wait(v_empty(s), parity);'
       new='(j - (j > 0 && j == n_kv - 1)) * T::BK, bkv);
           mbar_wait(v_empty(s), parity);' ;;
+    fa_d256_last_q_box)
+      file=$csrc/flash_attention.cu phase=flash_attention
+      old='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, b * T::BOX, q0, bh);'
+      new='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, (b - (D == 256 && b == T::NBOX - 1)) * T::BOX, q0, bh);' ;;
     ssd_carry_dropped)
       file=$csrc/ssd_scan.cu phase=ssd_scan
       old='const float e = expf(cum[i]);'
@@ -92,6 +102,10 @@ for name in $faults; do
       file=parallel/ctx.py phase=verify alone=
       old='return self.gather_tp(x, seq_axis)'
       new='return self.gather_tp(x, -1).reshape(*x.shape[:seq_axis], -1, x.shape[-1])' ;;
+    dp_rank_rows_swapped)
+      file=parallel/spmd.py phase=dp_forward alone=
+      old='batch = {"tokens": tokens[rank * rows:(rank + 1) * rows].to(dev)}'
+      new='batch = {"tokens": tokens[(world - 1 - rank) * rows:(world - rank) * rows].to(dev)}' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name

@@ -1,0 +1,27 @@
+"""Llama-3.1-405B [Meta] — verifier-benchmark config (paper Table 2 L3)."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name='llama3_405b',
+    family='dense',
+    n_layers=126,
+    d_model=16384,
+    n_heads=128,
+    n_kv_heads=8,
+    d_ff=53248,
+    vocab=128256,
+    mlp_act='swiglu',
+    n_kv_heads_padded=16,
+)
+
+SMOKE = ArchConfig(
+    name='llama3_405b_smoke',
+    family='dense',
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_ff=128,
+    vocab=256,
+    mlp_act='swiglu',
+)

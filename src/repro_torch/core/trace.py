@@ -14,10 +14,11 @@ so the same rules verify both:
 * composite ops are decomposed the way ``jax.numpy`` lowers them
   (``mean`` -> ``reduce_sum`` + ``div``, ``silu`` -> ``logistic`` + ``mul``,
   ``clamp`` -> ``max`` + ``min``, ``_softmax``, ``addmm``, ``triu``/``tril``,
-  ``softplus``, ``constant_pad_nd``), with jnp's explicit rank-promoting
-  broadcasts and ``where`` as ``select(pred, on_false, on_true)``; ATen's
-  spellings of one jnp op are folded back (``einsum`` and a matmul by a
-  matrix as ``dot_general``s, ``c / x``, chains of ``unsqueeze``);
+  ``softplus``, tanh-approximate ``gelu``, ``constant_pad_nd``), with jnp's
+  explicit rank-promoting broadcasts and ``where`` as ``select(pred,
+  on_false, on_true)``; ATen's spellings of one jnp op are folded back
+  (``einsum`` and a matmul by a matrix as ``dot_general``s, ``c / x``,
+  chains of ``unsqueeze``);
 * the program is traced functionalized: in-place writes to its inputs
   (a serving step's caches) become outputs;
 * Python scalars become hash-consed ``const`` leaves; scalar int
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import math
 import operator
 import os
 import re
@@ -53,7 +55,7 @@ import torch
 import torch.fx.traceback as fx_traceback
 from torch.overrides import TorchFunctionMode
 
-from repro_torch.models.modules import einsum_f32
+from repro_torch.models.modules import einsum_f32, silu
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 from .ir import Graph
@@ -125,7 +127,7 @@ def _user_src(frame) -> str:
     while frame is not None:
         f = frame.f_code.co_filename
         if not (f.startswith((_TORCH_DIR, _STDLIB_DIR, "<")) or f in _PLUMBING
-                or frame.f_code is einsum_f32.__code__):  # its caller's line
+                or frame.f_code in (einsum_f32.__code__, silu.__code__)):  # caller's line
             return f"{f.rsplit('/', 1)[-1]}:{frame.f_lineno}"
         frame = frame.f_back
     return ""
@@ -146,15 +148,18 @@ _MATMUL = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
 class _SourceMode(TorchFunctionMode):
     """Puts the caller's ``file.py:line`` on every fx node a torch call
     creates (as the node's ``stack_trace``, which fx copies under
-    ``preserve_node_meta()``), and lowers ``torch.einsum`` as ``jnp.einsum``
-    does: ATen would lower it to permutes, views and a ``bmm`` over merged
-    batch dims, where ``jnp.einsum`` gives one ``dot_general`` per pair of
-    operands (a sharded head dim merged with the batch dim is no split/merge
-    layout)."""
+    ``preserve_node_meta()``), records the model's ``silu`` (which rounds
+    as the reference does) as ``F.silu``, and lowers ``torch.einsum`` as
+    ``jnp.einsum`` does: ATen would lower it to permutes, views and a
+    ``bmm`` over merged batch dims, where ``jnp.einsum`` gives one
+    ``dot_general`` per pair of operands (a sharded head dim merged with
+    the batch dim is no split/merge layout)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         fx_traceback.set_stack_trace([_user_src(sys._getframe(1))])
         func = _INPLACE_OPERATORS.get(func, func)
+        if func is silu:  # the model's jax.nn.silu: logistic and mul
+            return torch.nn.functional.silu(*args)
         if func in (torch.einsum, einsum_f32) and not kwargs:
             out = _einsum_as_dot_general(*args, f32=func is einsum_f32)
             if out is not None:
@@ -611,6 +616,8 @@ class Tracer:
             return self.broadcast_to(self.convert(args[1], dtype), shape)
         if packet is _A.softplus and tuple(args[1:]) in ((), (1, 20)):
             return self._softplus(args[0], shape, dtype)
+        if packet is _A.gelu and kwargs.get("approximate", "none") == "tanh":
+            return self._gelu_tanh(args[0], shape, dtype)
         if packet is _A.constant_pad_nd:
             return self._pad(args, shape, dtype)
         if packet is _A.cumsum:
@@ -785,6 +792,18 @@ class Tracer:
         out = self.emit("add", [amax, t], shape, dtype)
         return self.emit("select", [isnan, out, both], shape, dtype)
 
+    def _gelu_tanh(self, x, shape, dtype):
+        """``jax.nn.gelu`` (``approximate=True``): ``x * (0.5 * (1 + tanh(
+        sqrt(2/pi) * (x + 0.044715 * x**3))))``, the constants in x's dtype."""
+        cube = self.emit("integer_pow", [x], shape, dtype, {"y": 3})
+        t = self.emit("mul", [self.scalar(0.044715, dtype), cube], shape, dtype)
+        t = self.emit("add", [x, t], shape, dtype)
+        t = self.emit("mul", [self.scalar(math.sqrt(2 / math.pi), dtype), t], shape, dtype)
+        t = self.emit("tanh", [t], shape, dtype)
+        t = self.emit("add", [self.scalar(1.0, dtype), t], shape, dtype)
+        t = self.emit("mul", [self.scalar(0.5, dtype), t], shape, dtype)
+        return self.emit("mul", [x, t], shape, dtype)
+
     def _pad(self, args, shape, dtype):
         """``jnp.pad`` with a constant: one ``pad`` with a (low, high,
         interior) entry per dim; torch lists (low, high) from the last dim."""
@@ -952,8 +971,8 @@ def _make_fx(flat_fn, fakes):
 
     with fx_traceback.preserve_node_meta(), _SourceMode():
         gm = make_fx(torch.func.functionalize(flat_fn), tracing_mode="fake")(*fakes)
+    _fold_written_views(gm)  # first: it reads views that are dead until it runs
     _fold_collective_dims(gm)
-    _fold_written_views(gm)
     _fold_jnp_forms(gm)
     return gm
 
@@ -1043,7 +1062,11 @@ def _fold_written_views(gm) -> None:
     they write, as a program that returns updated copies computes them:
 
     * a read ``select(select_scatter(b, s, d, i), d, j)`` is ``s`` when
-      ``j == i`` and ``select(b, d, j)`` otherwise;
+      ``j == i`` and ``select(b, d, j)`` otherwise; where the program took
+      that view earlier and functionalize took it again at its first use
+      (a block's cache slice, taken in ``layer<i>``, regenerated in
+      ``layer<i>/sub<j>`` after an earlier block's write), the read is the
+      program's view;
     * an output that writes every slot of a stacked input along dim 0
       (``select_scatter`` chains) is ``stack`` of the slot values, as
       ``jnp.stack`` of the per-layer caches;
@@ -1058,6 +1081,7 @@ def _fold_written_views(gm) -> None:
     """
     graph = gm.graph
     sel, scat = _A.select.int, _A.select_scatter.default
+    views = {}  # (base, dim, i) -> the first select of that slot
     for node in list(graph.nodes):
         if node.target is _A.index_copy.default:
             idx = node.args[2]
@@ -1077,6 +1101,11 @@ def _fold_written_views(gm) -> None:
             base = base.args[0]
         else:
             node.args = (base, dim, i)
+            first = views.setdefault((base, dim, i), node)
+            if first is not node and not first.users:
+                # functionalize took the program's view again at its first
+                # use: the view is the one the program took, in its scope
+                node.replace_all_uses_with(first)
     out = next(n for n in graph.nodes if n.op == "output")
 
     def stacked(v):

@@ -16,18 +16,25 @@
 // tensor-core operations (17.4 us at 989 TFLOP/s).  The f32 path runs on the
 // CUDA cores (no tensor cores in full f32) and is bound by their FMA rate.
 //
-// What the design does about it (bf16, D in {32, 64, 128}): the
+// What the design does about it (bf16, D in {32, 64, 128, 256}): the
 // FlashAttention-3 shape.
-// - Persistent blocks, one per SM, each with three warpgroups.  Warpgroup 0
-//   is the producer: one thread issues TMA loads of a 128-row Q tile and of
-//   K and V tiles into a ring of two stages, with a full and an empty
-//   mbarrier per stage and tensor (and per Q tile), and runs ahead into the
-//   block's next q-tile while the consumers finish the current one.  It
-//   gives up registers (setmaxnreg 24) to the two consumer warpgroups
-//   (setmaxnreg 240), which own 64 query rows each.
+// - Persistent blocks, one per SM, each with three warpgroups (two for
+//   D=256).  Warpgroup 0 is the producer: one thread issues TMA loads of a
+//   128-row Q tile (64 rows for D=256) and of K and V tiles into a ring of
+//   two stages, with a full and an empty mbarrier per stage and tensor (and
+//   per Q tile), and runs ahead into the block's next q-tile while the
+//   consumers finish the current one.  It gives up registers (setmaxnreg
+//   24) to the two consumer warpgroups (setmaxnreg 240), which own 64 query
+//   rows each.
+// - D=256 (gemma_2b) has one consumer warpgroup: its O accumulator alone is
+//   128 f32 registers a thread, which with S and P fits only the 255 that
+//   ptxas may allocate within a 256-thread launch bound; and two consumers'
+//   Q and O tiles (64 KB each) with two 64-key K/V stages (128 KB) would
+//   pass the 227 KB a block may take.  So a block holds a 64-row Q tile
+//   (32 KB), its O staging tile (32 KB) and the stages (128 KB).
 // - The tensor maps are 3-D over (D, S, B*H), so rows past Sq or Sk come in
 //   as zeros and never from the next head.  Tiles are 128-byte swizzled (64
-//   columns a box; two boxes for D=128), 64-byte for D=32.
+//   columns a box; two boxes for D=128, four for D=256), 64-byte for D=32.
 // - S = Q K^T is a wgmma chain with both operands in shared memory, f32
 //   accumulators in registers.  P (rounded to bf16 in registers) is the
 //   register A operand of the PV wgmma, and V is read as an MN-major B
@@ -38,9 +45,9 @@
 //   soon as S_j is done, V_j's after its PV product.
 // - ptxas allocates the consumers' registers within the launch bound (168
 //   for 384 threads); setmaxnreg moves the budget only at run time.  So
-//   D=128 takes 64-key tiles (S 32, P 16 and O 64 registers a thread) and
-//   D=32, 64 take 128-key tiles; 128-key tiles at D=128 spilled, and ptxas
-//   serialised the wgmmas.
+//   D=128 and D=256 take 64-key tiles (S 32, P 16 and O 64 or 128 registers
+//   a thread) and D=32, 64 take 128-key tiles; 128-key tiles at D=128
+//   spilled, and ptxas serialised the wgmmas.
 // - Causal: KV tiles wholly above the diagonal are never loaded; only the
 //   diagonal tiles and the ragged Sk edge are masked.  q-tiles are sorted
 //   heaviest first and dealt to the blocks in snake order.
@@ -251,13 +258,51 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 256, f32) += A B: A 64 x 16 in registers, B 16 x 256 MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (D == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -267,26 +312,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ------------------------------------------------------------ bf16, wgmma + TMA
 
-constexpr int kConsumers = 2;           // consumer warpgroups per block, 64 query rows each
-constexpr int kBQ = 64 * kConsumers;    // query rows per block
 constexpr int kStages = 2;
-constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 loads, the others compute
-// Registers after setmaxnreg: the producer keeps 24, the consumers share the rest.
+// Registers after setmaxnreg (two consumer warpgroups): the producer keeps
+// 24, the consumers share the rest.
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
 template <int D>
 struct Tile {
+  // consumer warpgroups per block, 64 query rows each: two for D <= 128;
+  // one for D = 256, whose 128 O accumulators a thread (plus S and P) need
+  // the 255 registers that ptxas allocates only within a 256-thread bound
+  static constexpr int CONSUMERS = D == 256 ? 1 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;         // query rows per block
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);  // warpgroup 0 loads
   static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span: bytes of one box row
   static constexpr int BOX = SW / 2;             // bf16 columns of one box
   static constexpr int NBOX = D / BOX;
   static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
-  static constexpr int BK = D == 128 ? 64 : 128;  // keys per KV tile
-  static constexpr int Q_BOX = kBQ * SW;          // one box of the Q tile
-  static constexpr int Q_BYTES = kBQ * D * 2;
+  static constexpr int BK = D >= 128 ? 64 : 128;  // keys per KV tile
+  static constexpr int Q_BOX = BQ * SW;           // one box of the Q tile
+  static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BOX = BK * SW;          // one box of a K or V tile
   static constexpr int KV_BYTES = BK * D * 2;
   // Q and O tiles, the KV stages, 1024 for alignment, 128 for the barriers
+  // (D = 256: 32 + 32 + 128 KB + 1152 B = 197,760 B of the 232,448 a block may take)
   static constexpr int SMEM = 2 * Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 128;
 };
 
@@ -412,12 +462,13 @@ __device__ __forceinline__ int tile_of_round(int r) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<D>::THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
                int Hq, int Hkv, int Sq, int Sk, int BHq, int n_qt, float scale_log2,
                int causal) {
   using T = Tile<D>;
+  constexpr int kConsumers = T::CONSUMERS, kBQ = T::BQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;  // Q tile
   const uint32_t so = sq + T::Q_BYTES;                      // O tile, staged for TMA
@@ -455,7 +506,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   __syncthreads();
 
   if (wg == 0) {  // producer: one thread keeps the Q tile and the KV ring filled
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if constexpr (kConsumers > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
     if (tid == 0) {
       int it = 0;  // KV tiles loaded so far, over all of this block's q-tiles
       for (int r = 0;; ++r) {
@@ -488,7 +540,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   }
 
   // consumers: warpgroup w owns query rows 64w..64w+63 of each q-tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+  if constexpr (kConsumers > 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
   const int w = wg - 1;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * ((tid / 32) & 3) + g;  // this thread's rows of the 64: r0 and r0 + 8
@@ -794,7 +847,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (configured != cudaSuccess) return configured;
   CUtensorMap qm, km, vm, om;
-  if (!make_map(&qm, q, B * Hq, Sq, D, T::BOX, kBQ, T::SW) ||
+  if (!make_map(&qm, q, B * Hq, Sq, D, T::BOX, T::BQ, T::SW) ||
       !make_map(&km, k, B * Hkv, Sk, D, T::BOX, T::BK, T::SW) ||
       !make_map(&vm, v, B * Hkv, Sk, D, T::BOX, T::BK, T::SW) ||
       !make_map(&om, o, B * Hq, Sq, D, T::BOX, 64, T::SW))
@@ -806,10 +859,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     return n;
   }();
-  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int n_qt = (Sq + T::BQ - 1) / T::BQ;
   const long long tiles = (long long)n_qt * B * Hq;
   if (tiles > 0x7fffffffLL || sms < 1) return cudaErrorInvalidValue;
-  flash_fwd_bf16<D><<<(unsigned)(tiles < sms ? tiles : sms), kThreads, T::SMEM, stream>>>(
+  flash_fwd_bf16<D><<<(unsigned)(tiles < sms ? tiles : sms), T::THREADS, T::SMEM, stream>>>(
       qm, km, vm, om, Hq, Hkv, Sq, Sk, B * Hq, n_qt, scale_log2, causal);
   return cudaGetLastError();
 }
@@ -824,12 +877,14 @@ extern "C" int repro_flash_attention_smem_bytes(int dtype, int D) {
       case 32: return Tile<32>::SMEM;
       case 64: return Tile<64>::SMEM;
       case 128: return Tile<128>::SMEM;
+      case 256: return Tile<256>::SMEM;
     }
   } else if (dtype == 0) {
     switch (D) {
       case 32: return (int)f32_smem_bytes<32>();
       case 64: return (int)f32_smem_bytes<64>();
       case 128: return (int)f32_smem_bytes<128>();
+      case 256: return (int)f32_smem_bytes<256>();
     }
   }
   return 0;
@@ -847,12 +902,14 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
       case 32: return launch_bf16<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 64: return launch_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 128: return launch_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
+      case 256: return launch_bf16<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
     }
   } else if (dtype == 0) {
     switch (D) {
       case 32: return launch_f32<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 64: return launch_f32<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 128: return launch_f32<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
+      case 256: return launch_f32<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
     }
   }
   return cudaErrorInvalidValue;

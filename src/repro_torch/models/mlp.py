@@ -6,7 +6,7 @@ import torch.nn.functional as F
 
 from repro_torch.parallel.ctx import ParallelCtx
 
-from .modules import ACTS, linear, linear_init
+from .modules import ACTS, linear, linear_init, silu
 
 
 def mlp_init(generator, cfg, d_ff: int, *, stacked: tuple = (), dtype=torch.bfloat16):
@@ -22,10 +22,12 @@ def mlp_init(generator, cfg, d_ff: int, *, stacked: tuple = (), dtype=torch.bflo
     }
 
 
-def mlp_fwd(cfg, ctx: ParallelCtx, p, x):
-    """Dense MLP: column-parallel in, row-parallel out."""
+def mlp_fwd(cfg, ctx: ParallelCtx, p, x, *, decode: bool = False):
+    """Dense MLP: column-parallel in, row-parallel out.  ``decode``: the
+    serving step's silu, rounded as the reference rounds it there
+    (``modules.silu``)."""
     if cfg.mlp_act == "swiglu":
-        h = F.silu(linear(p["wg"], x)) * linear(p["wu"], x)
+        h = (silu if decode else F.silu)(linear(p["wg"], x)) * linear(p["wu"], x)
     elif cfg.mlp_act == "geglu":
         h = ACTS["gelu"](linear(p["wg"], x)) * linear(p["wu"], x)
     else:

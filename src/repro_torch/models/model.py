@@ -226,5 +226,5 @@ class Model:
         x = x + mix
         if "ln2" in lp:
             hn = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + mlp_fwd(cfg, ctx, lp["mlp"], hn)
+            x = x + mlp_fwd(cfg, ctx, lp["mlp"], hn, decode=True)
         return x

@@ -21,6 +21,21 @@ def einsum_f32(equation: str, a, b):
     return torch.einsum(equation, a.float(), b.float())
 
 
+def silu(x):
+    """``jax.nn.silu`` as the reference's serving step rounds it: ``x *
+    logistic(x)``, with ``logistic`` as XLA expands it, ``1 / (1 +
+    exp(-x))``, each step in x's dtype.  In its forward pass XLA fuses silu
+    into the loops around it and rounds once, as ``F.silu`` does; in the
+    decode step it does not, and ``F.silu`` there moved a bf16 hybrid's
+    decode logits from the jitted JAX model by 4x JAX's own jit-against-eager
+    spread (tests/ssm_bf16_tolerances.py).  The verifier's tracer records
+    it as ``F.silu``, whose lowering is ``jax.nn.silu``'s: ``logistic`` and
+    ``mul``."""
+    if torch.overrides.has_torch_function((x,)):
+        return torch.overrides.handle_torch_function(silu, (x,), x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def _init(generator: torch.Generator, shape, scale: Optional[float] = None,
           dtype=torch.bfloat16):
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0] if shape else 1)

@@ -21,7 +21,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import chunk_len
 from repro_torch.parallel.ctx import ParallelCtx
 
-from .modules import _init, gated_rmsnorm, linear, linear_init, rmsnorm_init
+from .modules import _init, gated_rmsnorm, linear, linear_init, rmsnorm_init, silu
 
 
 def ssm_init(generator, cfg, *, stacked: tuple = (), dtype=torch.bfloat16):
@@ -184,9 +184,9 @@ def ssm_decode(cfg, ctx: ParallelCtx, p, x, cache):
     cx, ncx = conv_step(cache["conv_x"], xproj, p["conv_x"])
     cB, ncB = conv_step(cache["conv_B"], Bm, p["conv_B"])
     cC, ncC = conv_step(cache["conv_C"], Cm, p["conv_C"])
-    cx = F.silu(cx)
-    cB = F.silu(cB).float()
-    cC = F.silu(cC).float()
+    cx = silu(cx)
+    cB = silu(cB).float()
+    cC = silu(cC).float()
 
     H_loc = cx.shape[-1] // P
     dt = F.softplus(dt_raw + p["dt_bias"][..., :H_loc])  # (B,H)

@@ -13,8 +13,10 @@ The rank is a 0-d int64 tensor that the context holds (``rank``), never
 where the verifier needs the rank as a symbolic ``axis_index`` node.
 Sequence parallelism (``sp``) replaces the psum after each row-parallel
 region by a reduce_scatter along the sequence and gathers the sequence back
-before each column-parallel region.  The data and context-parallel axes are
-not ported yet: each raises ``NotImplementedError`` when it is switched on.
+before each column-parallel region.  The data-parallel axis runs alone: its
+psum and pmean are functional all_reduces over the default group; set
+beside the tensor-parallel axis (tp x dp) it raises
+``NotImplementedError``, as the context-parallel axis does.
 """
 from __future__ import annotations
 
@@ -69,9 +71,9 @@ class ParallelCtx:
         return self.tp_axis is not None or self.dp_axis is not None
 
     def _group(self) -> str:
-        """The name of the tp axis' process group, as the functional
+        """The name of the running axis' process group, as the functional
         collective ops take it: the default group, which holds every rank
-        while tp is the only axis that runs."""
+        while one axis (tp or dp) runs."""
         import torch.distributed as dist
 
         return dist.distributed_c10d._get_default_group().group_name
@@ -137,15 +139,18 @@ class ParallelCtx:
         return x
 
     # -- data-parallel -------------------------------------------------------
+    def _dp_ready(self) -> bool:
+        if self.dp_axis and self.tp_axis:
+            raise _unported(f"data parallelism over {self.dp_axis!r} beside tensor "
+                            f"parallelism over {self.tp_axis!r}")
+        return bool(self.dp_axis)
+
     def psum_dp(self, x):
-        if self.dp_axis:
-            raise _unported(f"data parallelism over {self.dp_axis!r}")
-        return x
+        return self._all_reduce(x, "sum") if self._dp_ready() else x
 
     def pmean_dp(self, x):
-        if self.dp_axis:
-            raise _unported(f"data parallelism over {self.dp_axis!r}")
-        return x
+        """``lax.pmean``: the psum over the data axis, divided by its size."""
+        return self.psum_dp(x) / self.dp_size if self.dp_axis else x
 
     # -- context parallel ----------------------------------------------------
     def cp_index(self):

@@ -19,6 +19,9 @@ collectives of ``ParallelCtx.tensor_parallel`` (sequence-parallel with
 ``sp``).  :func:`tp_decode` is its serving counterpart: the decode step the
 verifier's ``tp-decode`` scenario proves, fed one position at a time
 against this rank's shard of the caches (``cache_specs``).
+:func:`dp_forward` is the per-rank program of the verifier's ``dp-forward``
+scenario: every rank holds the whole single-device parameter set and runs
+the forward pass on its rows of the batch.
 """
 from __future__ import annotations
 
@@ -164,3 +167,32 @@ def tp_decode(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
         ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
     return {"logits": torch.stack(logits).cpu(),
             "caches": tree_map(lambda c: c.cpu(), caches), "ms": ms}
+
+
+def dp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
+               impl: str = "kernel", device: str = "cuda") -> dict:
+    """One rank of the data-parallel forward pass of ``cfg`` (on the card
+    unless ``device`` says otherwise): the parameters drawn from ``seed``
+    whole, the forward pass on this rank's rows of ``tokens`` (B, S) (a
+    ``world``-th of them, in rank order).  Returns this rank's logits (on
+    the CPU) and the forward time in ms."""
+    from repro_torch.models import Model
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    if tokens.shape[0] % world:
+        raise ValueError(f"batch {tokens.shape[0]} is not divisible by dp={world}")
+    dev = torch.device(device)
+    ctx = ParallelCtx(dp_axis=("data",), dp_size=world)
+    model = Model(cfg, ctx, impl=impl, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    rows = tokens.shape[0] // world
+    batch = {"tokens": tokens[rank * rows:(rank + 1) * rows].to(dev)}
+    with torch.inference_mode():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.forward(params, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return {"logits": logits.cpu(), "ms": ms}

@@ -9,10 +9,11 @@ Registered kinds (see ``python -m repro_torch.verify --list``):
 
 ``tp-forward``     baseline forward vs TP-sharded per-rank forward
 ``tp-decode``      one serving step against head-sharded KV/SSM caches
+``dp-forward``     batch-sharded forward (cross-batch interaction)
 ``sp-forward``     sequence-parallel forward (reduce_scatter/all_gather
                    around the norm regions vs the psum baseline)
 
-The JAX package's other kinds (dp-forward, dp-grad, stage, ep-moe-forward,
+The JAX package's other kinds (dp-grad, stage, ep-moe-forward,
 tpdp-forward) are not ported yet: asking for one gives the registry's
 ``PlanError``, which lists what is registered.
 """
@@ -27,7 +28,7 @@ from .harness import BuildCtx, GraphPair, round_layers
 from .registry import DEFAULT_SCENARIOS, ScenarioRegistry, ScenarioSpec
 
 # importing the scenario modules populates DEFAULT_SCENARIOS
-from . import sp, tp  # noqa: E402,F401
+from . import dp, sp, tp  # noqa: E402,F401
 
 
 def build_pair(arch: str, plan: Plan, scen: Scenario, stamp: bool = True,

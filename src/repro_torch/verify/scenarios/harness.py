@@ -69,12 +69,13 @@ class BuildCtx:
         return self._traced(tag, lambda: trace(fn, *shapes, name=name), shapes)
 
     def trace_base_sharded(self, tag: str, fn, size: int, in_specs, *shapes,
-                           name: str = "dist"):
-        """Sharded-trace variant of :meth:`trace_base`.  ``tag`` must
-        identify program + axis size + specs (the shape signature covers
-        only shapes)."""
+                           axis: str = "model", name: str = "dist"):
+        """Sharded-trace variant of :meth:`trace_base` over ``axis``.
+        ``tag`` must identify program + axis size + specs (the shape
+        signature covers only shapes)."""
         return self._traced(
-            tag, lambda: trace_sharded(fn, size, in_specs, *shapes, name=name),
+            tag, lambda: trace_sharded(fn, size, in_specs, *shapes, axis=axis,
+                                       name=name),
             shapes)
 
     def _traced(self, tag: str, thunk, shapes):

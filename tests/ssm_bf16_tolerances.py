@@ -14,8 +14,12 @@ prints, for each quantity, the readings a limit must sit between:
 
 Quantities: forward logits; decode logits (largest over the 6 steps of the
 test, at max_len 8); and after those steps each cache leaf, by name and
-layer position (``k``/``v`` for the hybrid's attention layer).  The faults
-are patched into this process only:
+layer position (``k``/``v`` for the hybrid's attention layer).  Then, under
+``positions``, the same benign readings for the decode step of
+tests/test_torch_model.py::test_tensor_position_matches_int_and_jax: two
+steps at positions 0 and 1, then one at position -3 (the write wraps once)
+or 9 (past max_len 6: the write clamps), its logits and the caches after
+it.  The faults are patched into this process only:
 
 - ``conv_taps_reversed``: the causal conv applies its taps in reverse order
   (forward and decode);
@@ -26,7 +30,7 @@ are patched into this process only:
 - ``conv_buffer_not_updated``: decode does not write its new conv inputs
   back to the cache (the trap that ``decode_step`` copies around).
 
-Usage (from the repository root; about 1 min on the CPU):
+Usage (from the repository root; about 1.5 min on the CPU):
 
     JAX_PLATFORMS=cpu python3 tests/ssm_bf16_tolerances.py
 """
@@ -113,9 +117,45 @@ def run_port(tcfg, tp) -> dict:
     return out
 
 
+def position_step(step, init_cache, position: int) -> dict:
+    """The position test's decode: positions 0, 1, then ``position``, with
+    ``step(tokens, cache, position) -> (logits, cache)``; the last step's
+    logits and the caches after it."""
+    toks = tokens(2, 3, 4)
+    cache = init_cache(2, 6)
+    for t in range(2):
+        _, cache = step(toks[:, t], cache, t)
+    lg, cache = step(toks[:, 2], cache, position)
+    return {"decode": [np32(lg)], "cache": [{k: np32(v) for k, v in c.items()}
+                                             for c in cache]}
+
+
+def position_readings(jm, jp, tcfg, tp) -> dict:
+    """Benign readings of the position test's decode step (see the module
+    docstring), by position."""
+    model = Model(tcfg, device="cpu")
+    jstep = jax.jit(jm.decode_step)
+    out = {}
+    for position in (-3, 9):
+        jit = position_step(lambda t, c, q: jstep(jp, jnp.asarray(t), c, jnp.int32(q)),
+                            jm.init_cache, position)
+        with jax.disable_jit():
+            eager = position_step(
+                lambda t, c, q: jm.decode_step(jp, jnp.asarray(t), c, jnp.int32(q)),
+                jm.init_cache, position)
+        port = position_step(
+            lambda t, c, q: model.decode_step(tp, torch.from_numpy(t).long(), c, q),
+            model.init_cache, position)
+        out[str(position)] = {"jax_jit_vs_eager": readings(eager, jit),
+                              "port_vs_jax_jit": readings(port, jit),
+                              "port_vs_jax_eager": readings(port, eager)}
+    return out
+
+
 def readings(got: dict, want: dict) -> dict:
-    r = {"forward_logits": rel(got["forward"], want["forward"]),
-         "decode_logits": max(rel(a, b) for a, b in zip(got["decode"], want["decode"]))}
+    r = {"decode_logits": max(rel(a, b) for a, b in zip(got["decode"], want["decode"]))}
+    if "forward" in want:
+        r = {"forward_logits": rel(got["forward"], want["forward"]), **r}
     for j, (gc, wc) in enumerate(zip(got["cache"], want["cache"])):
         for name in wc:
             r[f"cache[{j}].{name}"] = rel(gc[name], wc[name])
@@ -193,6 +233,8 @@ def main() -> int:
                           "port_vs_jax_jit": readings(port, jit),
                           "port_vs_jax_eager": readings(port, eager)},
                "faults_vs_jax_jit": faulty}
+        with torch.inference_mode():
+            out["positions"] = position_readings(jm, jp, tcfg, tp)
         print(json.dumps(out), flush=True)
     return 0
 

@@ -20,7 +20,8 @@ COPIES = [
         "registry", "sliceops")),
     "verify/plan.py", "verify/specs.py", "verify/scenarios/registry.py",
     *(f"configs/{a}.py" for a in (
-        "llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b")),
+        "llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b", "gemma_2b",
+        "llama3_70b", "llama3_405b")),
 ]
 
 # rewritten for torch, not copies
@@ -36,6 +37,7 @@ KNOWN_EXCEPTIONS = {
     "verify/session.py": "the lint tier is not ported",
     "verify/cli.py": "the lint tier and unported scenarios exit 2",
     "verify/scenarios/__init__.py": "registers the ported scenarios only",
+    "verify/scenarios/dp.py": "dp-grad needs the backward trace; torch pytrees",
     "verify/campaign.py": "unported scenarios are reported, the lint tier is off",
 }
 

@@ -91,6 +91,41 @@ def test_flash_plain_vs_pallas_interpret(shape, dtype, causal):
     _assert_no_launch()
 
 
+# gemma_2b's head dim: MQA (1 KV head) and its padded MHA, ragged and not,
+# both dtypes; causal Sq != Sk against the interpret kernel only (see above)
+D256 = [(1, 4, 1, 96, 96, 256), (1, 2, 2, 64, 160, 256), (2, 2, 1, 160, 64, 256)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", D256)
+def test_flash_plain_head_dim_256(shape, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(*shape, dtype, seed=11)
+    causal = shape[3] == shape[4]
+    out = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    np.testing.assert_allclose(_np(out), _np(_attention_ref(jq, jk, jv, causal=causal)),
+                               **_tol(dtype))
+    want = jops.flash_attention(jq, jk, jv, causal=True, block_q=64, block_k=64,
+                                interpret=True)
+    np.testing.assert_allclose(_np(ops.flash_attention(tq, tk, tv, causal=True)),
+                               _np(want), **_tol(dtype))
+    _assert_no_launch()
+
+
+def test_flash_wrapper_takes_head_dims(monkeypatch):
+    """Past the device check, the wrapper takes every D of HEAD_DIMS,
+    gemma_2b's 256 included, and refuses the others (hubert_xlarge's 80)."""
+    monkeypatch.setattr(fa.build, "require_hopper", lambda t: None)
+    assert 256 in fa.HEAD_DIMS
+    for D in fa.HEAD_DIMS:
+        (_, tq), (_, tk), (_, tv) = _qkv(1, 2, 1, 8, 8, D, "bfloat16")
+        fa._check(tq, tk, tv)
+    for bad in (80, 512):
+        (_, tq), (_, tk), (_, tv) = _qkv(1, 2, 1, 8, 8, bad, "bfloat16")
+        with pytest.raises(ValueError, match="head dim"):
+            fa._check(tq, tk, tv)
+
+
 @pytest.mark.parametrize("shape", [(1, 4, 2, 64, 160, 32), (1, 4, 2, 160, 64, 32),
                                    (1, 2, 2, 64, 64, 32)])
 @pytest.mark.parametrize("causal", [True, False])

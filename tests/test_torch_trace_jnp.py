@@ -1,8 +1,9 @@
 """The port's tracer against the JAX package's on the same small functions:
 the torch op and its ``jax.numpy`` counterpart lower to the same IR ops, with
-the same parameters where the rules read them.  The cases are the ops of the
-SSM layers (``F.pad``, ``F.softplus``, ``torch.cumsum``, ``torch.stack``,
-einsums over three operands, whose contraction order depends on the shapes),
+the same parameters where the rules read them.  The cases are GeGLU's tanh
+``F.gelu``, the ops of the SSM layers (``F.pad``, ``F.softplus``,
+``torch.cumsum``, ``torch.stack``, einsums over three operands, whose
+contraction order depends on the shapes),
 the decode step's cache write (``index_copy_`` at a wrapped and clamped
 index, traced functionalized), the sequence-parallel collectives, and the
 ATen spellings of a matmul, ``x[:, None]``, a unit-dim index, an f32
@@ -50,6 +51,23 @@ def test_softplus_is_logaddexp():
     sel = next(n for n in g if n.op == "select")
     jsel = next(n for n in jg if n.op == "select")
     assert [g[i].op for i in sel.inputs] == [jg[i].op for i in jsel.inputs]
+
+
+@pytest.mark.parametrize("dtypes", [F32, BF16], ids=["f32", "bf16"])
+def test_tanh_gelu_is_jax_gelu(dtypes):
+    """GeGLU's ``F.gelu(approximate="tanh")`` lowers as ``jax.nn.gelu``:
+    x**3, * 0.044715, + x, * sqrt(2/pi), tanh, + 1, * 0.5, * x, with the
+    constants in x's dtype and each operand where jnp puts it."""
+    g, jg = _pair(lambda x: F.gelu(x, approximate="tanh"), jax.nn.gelu, ((2, 5), dtypes))
+    assert _body(g) == _body(jg) == ["integer_pow", "mul", "add", "mul", "tanh", "add",
+                                     "mul", "mul"]
+    assert [[g[i].op for i in n.inputs] for n in g] == [[jg[i].op for i in n.inputs]
+                                                         for n in jg]
+    assert {n.dtype for n in g} == {n.dtype for n in jg} == {str(dtypes[1].dtype)}
+    assert _param(g, "integer_pow", "y") == [3]
+    # the exact form stays opaque: the reference has no lowering to hold it to
+    ge, _, _ = trace(F.gelu, ShapeDtype((2, 5), torch.float32))
+    assert _body(ge) == ["gelu"]
 
 
 def test_causal_pad_is_one_pad():

@@ -1,9 +1,11 @@
 """The port's verification API and CLI against the JAX package's: verdicts of
-llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b and chatglm3_6b for tp-forward,
-tp-decode and sp-forward at tp 2 and 4 (full width, 2 layers), the CLI's
-exit codes, the warm disk cache, the stamped full-depth trace, and the
-llama3_8b tp4 and mamba2_130m tp4 campaign cells.  Each verdict case also
-holds the port's IR to the JAX IR of the same pair op by op, up to the
+llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b, chatglm3_6b and gemma_2b for
+tp-forward, tp-decode and sp-forward at tp 2 and 4 and dp-forward at dp 2
+and 4 (full width, 2 layers), of llama3_70b and llama3_405b's SMOKE configs,
+the CLI's exit codes, the warm disk cache, the stamped full-depth trace,
+the layer memo hits of the serving step, and the llama3_8b tp4,
+mamba2_130m tp4 and gemma_2b tp4/dp2 campaign cells.  Each verdict case
+also holds the port's IR to the JAX IR of the same pair op by op, up to the
 differences listed at ``EMBED_DIFF``."""
 import collections
 import json
@@ -24,17 +26,26 @@ from repro_torch.verify import cli  # noqa: E402
 from repro_torch.verify.scenarios import build_pair  # noqa: E402
 
 LAYERS = 2
-ARCHS = ["llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b"]
-SCENARIOS = {"tp-forward": {}, "tp-decode": {"mode": "decode"}, "sp-forward": {"sp": True}}
+ARCHS = ["llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b", "gemma_2b"]
+SCENARIOS = {"tp-forward": {}, "tp-decode": {"mode": "decode"}, "sp-forward": {"sp": True},
+             "dp-forward": {}}
+
+
+def _plans(scenario: str, size: int, **kw):
+    """(port Plan, JAX Plan) of ``scenario`` at axis size ``size``."""
+    axis = {"dp": size} if scenario == "dp-forward" else {"tp": size}
+    return (Plan(**axis, **SCENARIOS[scenario], **kw),
+            JPlan(**axis, **SCENARIOS[scenario], **kw))
 
 
 # The port's IR against the JAX package's for the same pair, op by op, over
 # the nodes the outputs depend on (the JAX tracer keeps dead nodes: the dist
 # graph's global-shape inputs, an SSD scan's unused final state).  What stays
 # different (ROADMAP queue 3): the single-device embedding's NaN fill, a
-# select after the gather in the port (base); jnp.take's index wrap inside
-# vp_embed (dist); and in a forward, one convert a SSM layer for _segsum's
-# -inf, a weakly typed Python scalar in jnp.
+# select after the gather in the port (base, and dp-forward's dist, the
+# single-device program on a batch shard); jnp.take's index wrap inside
+# vp_embed (TP's dist); and in a forward, one convert a SSM layer for
+# _segsum's -inf, a weakly typed Python scalar in jnp.
 EMBED_DIFF = {"base": {"const": 2, "broadcast": 2, "ge": 1, "lt": 1, "and": 1,
                        "select": 1, "min": 1, "max": 1},
               "dist": {"lt": -1, "add": -1, "select": -1, "broadcast": -1}}
@@ -57,15 +68,16 @@ def sessions():
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_verdict_matches_jax(arch, tp, scenario, sessions):
+    """``tp`` is the scenario's axis size (the data axis for dp-forward)."""
     s, js = sessions
-    got = s.verify(arch, Plan(tp=tp, layers=LAYERS, **SCENARIOS[scenario]))
-    want = js.verify(arch, JPlan(tp=tp, layers=LAYERS, **SCENARIOS[scenario]))
+    plan, jplan = _plans(scenario, tp, layers=LAYERS)
+    got, want = s.verify(arch, plan), js.verify(arch, jplan)
     assert got.verified == want.verified is True
     assert got.outputs_ok == want.outputs_ok
+    assert got.memo.memo_hits == want.memo.memo_hits
     assert [r["scenario"] for r in got.scenarios] == [r["scenario"] for r in want.scenarios]
     assert [r["scenario"] for r in got.scenarios] == [scenario]
     assert not got.stamped  # 2 layers: fewer than TRACE_PERIODS + 1 periods
-    plan, jplan = (P(tp=tp, layers=LAYERS, **SCENARIOS[scenario]) for P in (Plan, JPlan))
     pair = build_pair(arch, plan, plan.scenarios()[0], stamp=False)
     jpair = jbuild_pair(arch, jplan, jplan.scenarios()[0], stamp=False)
     cfg = get_config(arch)
@@ -74,8 +86,47 @@ def test_verdict_matches_jax(arch, tp, scenario, sessions):
     for side in ("base", "dist"):
         t, j = _live_ops(getattr(pair, side)), _live_ops(getattr(jpair, side))
         diff = {op: t[op] - j[op] for op in t | j if t[op] != j[op]}
-        want = dict(EMBED_DIFF[side], **({"convert": -segsum} if segsum else {}))
+        embed = EMBED_DIFF["base" if scenario == "dp-forward" else side]
+        want = dict(embed, **({"convert": -segsum} if segsum else {}))
         assert diff == want, (side, diff)
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+@pytest.mark.parametrize("arch", ["llama3_70b", "llama3_405b"])
+def test_smoke_verdict_matches_jax(arch, scenario, sessions):
+    """The paper's L2 and L3 configs at SMOKE size, each scenario at axis
+    size 2 (full width and depth at tp 16 run in chip_smoke.py's verify
+    phase)."""
+    s, js = sessions
+    plan, jplan = _plans(scenario, 2, smoke=True)
+    got, want = s.verify(arch, plan), js.verify(arch, jplan)
+    assert got.verified == want.verified is True
+    assert (got.memo.memo_hits, got.outputs_ok) == (want.memo.memo_hits, want.outputs_ok)
+
+
+def _block_slices(g, layer: int) -> int:
+    """Slices of trace inputs taken in ``layer<layer>``'s own scope."""
+    return sum(n.scope == f"layer{layer}" and n.op == "slice" and g[n.inputs[0]].op == "input"
+               for n in g)
+
+
+@pytest.mark.parametrize("arch,layers,hits", [("llama3_8b", 2, 1), ("mamba2_130m", 2, 1),
+                                              ("gemma_2b", 4, 5)])
+def test_decode_memo_hits_match_jax(arch, layers, hits):
+    """The serving step's layer partitions are JAX's: each block slices all
+    its leaves, its caches' among them, in ``layer<i>`` (functionalize takes
+    a cache view again at its first use after an earlier block's write; the
+    tracer keeps the program's view), so every block after the first
+    replays the first from the memo."""
+    plan, jplan = _plans("tp-decode", 4, layers=layers)
+    with Session() as s, JSession() as js:
+        got, want = s.verify(arch, plan), js.verify(arch, jplan)
+    assert got.verified and want.verified
+    assert got.memo.memo_hits == want.memo.memo_hits == hits
+    g = build_pair(arch, plan, plan.scenarios()[0], stamp=False).base
+    jg = jbuild_pair(arch, jplan, jplan.scenarios()[0], stamp=False).base
+    for i in range(layers):
+        assert _block_slices(g, i) == _block_slices(jg, i) == _block_slices(jg, 0)
 
 
 def test_full_depth_is_stamped():
@@ -92,7 +143,7 @@ def test_full_depth_is_stamped():
     (["llama3_8b", "--tp", "4", "--layers", "2", "--inject", "drop_all_reduce"], 1, 1),
     (["llama3_8b", "--tp", "1"], 2, 2),
     (["no_such_arch", "--tp", "4"], 2, 2),
-    (["llama3_8b", "--dp", "2"], 2, None),
+    (["llama3_8b", "--dp", "2", "--layers", "2"], 0, 0),
     (["llama3_8b", "--grad", "--dp", "2"], 2, None),
 ])
 def test_cli_exit_codes_match_jax(argv, code, jax_code, capsys):
@@ -111,8 +162,9 @@ def test_cli_unported_and_lint_exit_2(capsys):
         Session().verify("llama3_8b", Plan(tp=4, layers=LAYERS), lint=True)
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
-    assert "tp-forward" in out and "llama3_8b" in out and "dp-forward" not in out
+    assert "tp-forward" in out and "llama3_8b" in out and "dp-grad" not in out
     assert "tp-decode" in out and "sp-forward" in out and "chatglm3_6b" in out
+    assert "dp-forward" in out and "gemma_2b" in out
 
 
 def test_warm_disk_cache_gives_the_same_canonical_report(tmp_path, capsys):
@@ -147,10 +199,11 @@ def test_campaign_cells_match_jax():
 @pytest.mark.parametrize("arch,scenarios,detected", [
     ("llama3_8b", ["tp-decode", "sp-forward"], 15),
     ("mamba2_130m", ["tp-forward"], 8),
+    ("gemma_2b", ["tp-forward", "dp-forward"], 13),
 ])
 def test_serving_sp_and_ssm_campaign_cells_match_jax(arch, scenarios, detected):
-    got = run_campaign([arch], tp=4, scenarios=scenarios)
-    want = jrun_campaign([arch], tp=4, scenarios=scenarios)
+    got = run_campaign([arch], tp=4, dp=2, scenarios=scenarios)
+    want = jrun_campaign([arch], tp=4, dp=2, scenarios=scenarios)
     cells = {(c.scenario, c.injector): (c.outcome, c.localized) for c in got.cells}
     assert cells == {(c.scenario, c.injector): (c.outcome, c.localized)
                      for c in want.cells}
@@ -159,9 +212,9 @@ def test_serving_sp_and_ssm_campaign_cells_match_jax(arch, scenarios, detected):
 
 
 def test_unported_campaign_scenarios_are_not_missed():
-    rep = run_campaign(["llama3_8b"], tp=4, dp=2, scenarios=["tp-forward", "dp-forward"],
+    rep = run_campaign(["llama3_8b"], tp=4, dp=2, scenarios=["tp-forward", "dp-grad"],
                        injectors=["drop_all_reduce"])
-    dp = [c for c in rep.cells if c.scenario == "dp-forward"]
+    dp = [c for c in rep.cells if c.scenario == "dp-grad"]
     assert dp and {c.outcome for c in dp} == {"not_ported"}
     assert rep.ok and rep.missed == 0 and rep.detected == 1
     assert cli.campaign_main(["--fuzz-only", "--seeds", "2", "--quiet"]) == 0
