@@ -16,6 +16,10 @@
 #   fa_d256_last_q_box    at head dim 256 the last 64-column box of each Q
 #                         tile is never loaded: the producer fills it with
 #                         the third box's columns
+#   fa_d80_box_extent     at head dim 80 the tensor maps' inner extent is
+#                         one box, 64 columns: the second box reads zeros in
+#                         place of columns 64-79 of Q, K and V, and the
+#                         store leaves O's columns 64-79 unwritten
 # Faults in csrc/ssd_scan.cu (K3):
 #   ssd_carry_dropped     the incoming state's contribution to y (y_off) is
 #                         dropped after the first chunk
@@ -40,13 +44,18 @@
 # A fault in the data-parallel program (caught by the dp_forward phase):
 #   dp_rank_rows_swapped  each rank runs the forward on the other rank's
 #                         rows of the batch (parallel/spmd.py)
+# A fault in the frontends' entry into SP (caught by the verify phase; SP
+# does not run on the card):
+#   sp_frontend_prev_chunk  each rank takes rank r - 1's chunk of the
+#                         replicated frames or prefix (models/model.py)
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
 shift $(( $# > 0 ? 1 : 0 ))
-faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box ssd_carry_dropped \
-ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped tp_vp_embed_shifted \
-decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped}
+faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box fa_d80_box_extent \
+ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped \
+tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped \
+sp_frontend_prev_chunk}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
@@ -68,6 +77,10 @@ for name in $faults; do
       file=$csrc/flash_attention.cu phase=flash_attention
       old='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, b * T::BOX, q0, bh);'
       new='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, (b - (D == 256 && b == T::NBOX - 1)) * T::BOX, q0, bh);' ;;
+    fa_d80_box_extent)
+      file=$csrc/flash_attention.cu phase=flash_attention
+      old='const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};'
+      new='const cuuint64_t dims[3] = {(cuuint64_t)(D == 80 ? box_cols : D), (cuuint64_t)S, (cuuint64_t)BH};' ;;
     ssd_carry_dropped)
       file=$csrc/ssd_scan.cu phase=ssd_scan
       old='const float e = expf(cum[i]);'
@@ -106,6 +119,10 @@ for name in $faults; do
       file=parallel/spmd.py phase=dp_forward alone=
       old='batch = {"tokens": tokens[rank * rows:(rank + 1) * rows].to(dev)}'
       new='batch = {"tokens": tokens[(world - 1 - rank) * rows:(world - rank) * rows].to(dev)}' ;;
+    sp_frontend_prev_chunk)
+      file=models/model.py phase=verify alone=
+      old='x = dynamic_slice_in_dim(x, ctx.tp_index() * chunk, chunk, axis=1)'
+      new='x = dynamic_slice_in_dim(x, (ctx.tp_index() - 1) * chunk, chunk, axis=1)' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name

@@ -1,15 +1,22 @@
-"""Architecture configuration schema + registry.
+"""Architecture configuration schema + registry + input specs.
 
 Every ported architecture gets one module in this package defining a
 ``CONFIG`` (full published size) and a ``SMOKE`` (reduced same-family config
 for CPU tests).  The fields and derived properties are those of the JAX
 package's ``ArchConfig``, so one config describes the same model in both.
+
+Shape suite: train_4k / prefill_32k / decode_32k / long_500k, with per-arch
+skips (encoder-only -> no decode; full-attention -> no 500k), as in the JAX
+package.
 """
 from __future__ import annotations
 
 import importlib
 import math
 from dataclasses import dataclass
+from typing import Optional
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -157,6 +164,30 @@ class ArchConfig:
         return full - all_exp + act_exp
 
 
+@dataclass(frozen=True)
+class ShapeDtype:
+    """A tensor's shape and dtype, the counterpart of jax's
+    ``ShapeDtypeStruct``: what the tracer needs of an input."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
 ARCH_IDS = [
     "qwen1_5_4b",
     "chatglm3_6b",
@@ -179,3 +210,55 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     family is not ported yet has no module and raises ModuleNotFoundError."""
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def skip_reason(cfg: ArchConfig, shape: str) -> Optional[str]:
+    """The JAX package's skip rules, with its strings."""
+    spec = SHAPES[shape]
+    if cfg.encoder_only and spec.kind == "decode":
+        return "encoder-only architecture has no decode step"
+    if shape == "long_500k":
+        sub_quadratic = cfg.ssm_state > 0  # pure SSM or hybrid
+        if not sub_quadratic:
+            return "pure full-attention arch: 500k decode restricted to SSM/hybrid per assignment"
+    return None
+
+
+def input_specs(cfg: ArchConfig, shape: str | ShapeSpec):
+    """:class:`ShapeDtype` records for every model input of a shape cell
+    (a name in ``SHAPES``, or a ``ShapeSpec`` of another batch and length),
+    the JAX package's ``jax.ShapeDtypeStruct`` stand-ins dim for dim and
+    dtype for dtype.
+
+    train  -> {tokens, labels}            (B, S) int32
+    prefill-> {tokens}                    (B, S) int32
+    decode -> {token, position}           one new token at a position
+    Modality frontends are stubs: precomputed frame/patch embeddings,
+    ``frames`` (B, S, d_model) or ``vision_embeds`` (B, frontend_len,
+    frontend_dim) in the model's dtype, which take the first positions of
+    the sequence (a vision prefix leaves S - frontend_len tokens).
+    """
+    spec = SHAPES[shape] if isinstance(shape, str) else shape
+    B, S = spec.global_batch, spec.seq_len
+    i32 = torch.int32
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    out = {}
+    if cfg.frontend == "vision_patches":
+        out["vision_embeds"] = ShapeDtype((B, cfg.frontend_len, cfg.frontend_dim), dt)
+        tok_len = S - cfg.frontend_len
+    elif cfg.frontend == "audio_frames":
+        out["frames"] = ShapeDtype((B, S, cfg.d_model), dt)
+        tok_len = 0
+    else:
+        tok_len = S
+    if spec.kind == "train":
+        if tok_len:
+            out["tokens"] = ShapeDtype((B, tok_len), i32)
+        out["labels"] = ShapeDtype((B, S), i32)
+    elif spec.kind == "prefill":
+        if tok_len:
+            out["tokens"] = ShapeDtype((B, tok_len), i32)
+    else:  # decode; the caches come from the model (per-layer kinds differ)
+        out["token"] = ShapeDtype((B,), i32)
+        out["position"] = ShapeDtype((), i32)
+    return out

@@ -26,6 +26,9 @@ so the same rules verify both:
 * the functional collectives become ``all_reduce``/``all_gather``/
   ``reduce_scatter`` nodes over the traced axis (``wait_tensor`` is
   dropped), and the context's rank input is emitted as ``axis_index``;
+  ``repro_torch::dynamic_slice`` (``modules.dynamic_slice_in_dim``, a slice
+  at a tensor start such as ``rank * chunk``) becomes
+  ``lax.dynamic_slice_in_dim``'s start wrap and ``dynamic_slice``;
 * every node carries ``src`` (``file.py:line`` of the innermost frame
   outside torch and this module, captured by a ``TorchFunctionMode`` while
   tracing), its ``named_scope`` path (:mod:`repro_torch.scope`) and the
@@ -47,7 +50,6 @@ import os
 import re
 import sys
 from contextlib import contextmanager
-from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -55,6 +57,7 @@ import torch
 import torch.fx.traceback as fx_traceback
 from torch.overrides import TorchFunctionMode
 
+from repro_torch.configs.base import ShapeDtype
 from repro_torch.models.modules import einsum_f32, silu
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
@@ -77,15 +80,6 @@ def default_layer_tag(scope: str) -> Optional[int]:
     if ms is not None:  # block-level scope with per-layer sub-scopes (decode)
         tag += int(ms.group(1)) + 1
     return tag
-
-
-@dataclass(frozen=True)
-class ShapeDtype:
-    """A tensor's shape and dtype, the counterpart of jax's
-    ``ShapeDtypeStruct``: what the tracer needs of an input."""
-
-    shape: tuple
-    dtype: torch.dtype
 
 
 DTYPE_NAMES = {
@@ -696,6 +690,8 @@ class Tracer:
                    else [self.convert(a, dtype) for a in args[:2]])
             return self.emit("dot", ins, shape, dtype,
                              {"dimension_numbers": ((lc, rc), (lb, rb))})
+        if packet is getattr(torch.ops.repro_torch, "dynamic_slice", None):
+            return self._dynamic_slice(args, shape, dtype)
         if packet is _A.mm:
             return self.emit("dot", args[:2], shape, dtype,
                              {"dimension_numbers": (((1,), (0,)), ((), ()))})
@@ -776,6 +772,20 @@ class Tracer:
         starts[dim] = self.reshape(idx, ())
         return self.emit("dynamic_update_slice", [x, self.convert(src, dtype)] + starts,
                          shape, dtype)
+
+    def _dynamic_slice(self, args, shape, dtype):
+        """``lax.dynamic_slice_in_dim(x, s, size, axis)``: jnp wraps a
+        negative start once (``select(s < 0, s, s + n)``), the other dims
+        start at a constant zero, and ``dynamic_slice`` clamps."""
+        x, start, axis, _ = args
+        idt = _DTYPES_BY_NAME[self.g[start].dtype]
+        zero = self.scalar(0, idt)
+        lt = self.emit("lt", [start, zero], (), torch.bool)
+        wrapped = self.emit("add", [start, self.scalar(self.g[x].shape[axis], idt)], (), idt)
+        starts = [zero] * len(shape)
+        starts[axis] = self.emit("select", [lt, start, wrapped], (), idt)
+        return self.emit("dynamic_slice", [x] + starts, shape, dtype,
+                         {"slice_sizes": tuple(shape)})
 
     def _softplus(self, x, shape, dtype):
         """``jax.nn.softplus``: ``logaddexp(x, 0)``, whose jnp lowering is
@@ -926,8 +936,10 @@ def _fake_inputs(mode, leaves) -> list:
 
 def _lower(gm, name: str, layer_tag_fn, axis: str, rank_slot: bool):
     """The fx graph of ``gm`` as a :class:`Graph`; with ``rank_slot`` the first
-    placeholder is the rank, emitted as ``axis_index`` where it is first
-    used (as ``lax.axis_index`` appears where the JAX code calls it)."""
+    placeholder is the rank, emitted as one ``axis_index`` for each op that
+    reads it, where that op is (as ``lax.axis_index`` appears at each place
+    the JAX code calls it: the vocab-parallel embedding's offset, a
+    frontend's SP slice)."""
     t = Tracer(layer_tag_fn, axis)
     t.g.name = name
     env: dict = {}
@@ -950,7 +962,7 @@ def _lower(gm, name: str, layer_tag_fn, axis: str, rank_slot: bool):
                 torch.float32 if tensor.dtype == torch.bfloat16 else tensor.dtype
             ).numpy(), dtype_name(tensor.dtype))
         elif node.op == "call_function":
-            if rank_node is not None and rank_node not in env and rank_node in node.args:
+            if rank_node is not None and rank_node in node.args:
                 t._ctx = t._node_ctx(node)
                 env[rank_node] = t.emit("axis_index", [], (),
                                         dtype_name(rank_node.meta["val"].dtype),

@@ -13,10 +13,12 @@
 // (q, k) pairs, 17.2 GFLOP, against 50.3 MB that must move (q, k, v read
 // once, o written once): 342 flops per byte, above the H100's 295 bf16
 // flops per byte of HBM bandwidth, so the bf16 kernel is bound by
-// tensor-core operations (17.4 us at 989 TFLOP/s).  The f32 path runs on the
-// CUDA cores (no tensor cores in full f32) and is bound by their FMA rate.
+// tensor-core operations (17.4 us at 989 TFLOP/s).  hubert_xlarge's prefill
+// (B=2, H=16, S=1024, D=80, non-causal) does 10.7 GFLOP against 21.0 MB,
+// also bound by operations (10.9 us).  The f32 path runs on the CUDA cores
+// (no tensor cores in full f32) and is bound by their FMA rate.
 //
-// What the design does about it (bf16, D in {32, 64, 128, 256}): the
+// What the design does about it (bf16, D in {32, 64, 80, 128, 256}): the
 // FlashAttention-3 shape.
 // - Persistent blocks, one per SM, each with three warpgroups (two for
 //   D=256).  Warpgroup 0 is the producer: one thread issues TMA loads of a
@@ -35,6 +37,15 @@
 // - The tensor maps are 3-D over (D, S, B*H), so rows past Sq or Sk come in
 //   as zeros and never from the next head.  Tiles are 128-byte swizzled (64
 //   columns a box; two boxes for D=128, four for D=256), 64-byte for D=32.
+// - D=80 (hubert_xlarge): a row of 160 bytes is no whole number of 128-byte
+//   boxes, so the tiles in shared memory are D=128's (two boxes a row) and
+//   the maps keep the true extent, 80: TMA fills columns 80-127 of each
+//   load with zeros and writes no column past 80 on the store.  S = Q K^T
+//   takes the five k16-steps of the 80 true columns and O += P V is one
+//   m64n80k16 a k-step (box 0 and the first 16 columns of box 1), so the
+//   padded columns are never read; with O at 40 registers a thread the
+//   KV tiles are 128 keys (197,760 B of shared memory, as D=256's).  The
+//   scale is 1/sqrt(80).
 // - S = Q K^T is a wgmma chain with both operands in shared memory, f32
 //   accumulators in registers.  P (rounded to bf16 in registers) is the
 //   register A operand of the PV wgmma, and V is read as an MN-major B
@@ -46,8 +57,8 @@
 // - ptxas allocates the consumers' registers within the launch bound (168
 //   for 384 threads); setmaxnreg moves the budget only at run time.  So
 //   D=128 and D=256 take 64-key tiles (S 32, P 16 and O 64 or 128 registers
-//   a thread) and D=32, 64 take 128-key tiles; 128-key tiles at D=128
-//   spilled, and ptxas serialised the wgmmas.
+//   a thread) and D=32, 64, 80 take 128-key tiles (S 64, P 32, O up to 40);
+//   128-key tiles at D=128 spilled, and ptxas serialised the wgmmas.
 // - Causal: KV tiles wholly above the diagonal are never loaded; only the
 //   diagonal tiles and the ragged Sk edge are masked.  q-tiles are sorted
 //   heaviest first and dealt to the blocks in snake order.
@@ -234,6 +245,26 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, f32) += A B: A 64 x 16 in registers, B 16 x 80 MN-major in shared memory
+// (one 64-column box and the first 16 columns of the next).
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A B: A 64 x 16 in registers, B 16 x 128 MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -299,8 +330,11 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 256,
+                "no wgmma for this width");
   if constexpr (D == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (D == 80) wgmma_rs_n80(d, a, db);
   else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n256(d, a, db);
 }
@@ -326,15 +360,18 @@ struct Tile {
   static constexpr int CONSUMERS = D == 256 ? 1 : 2;
   static constexpr int BQ = 64 * CONSUMERS;         // query rows per block
   static constexpr int THREADS = 128 * (1 + CONSUMERS);  // warpgroup 0 loads
+  // columns of a tile row in shared memory: D, or D=128's for D=80, whose
+  // columns past 80 TMA fills with zeros (and no product reads)
+  static constexpr int DT = D == 80 ? 128 : D;
   static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span: bytes of one box row
   static constexpr int BOX = SW / 2;             // bf16 columns of one box
-  static constexpr int NBOX = D / BOX;
+  static constexpr int NBOX = DT / BOX;
   static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
   static constexpr int BK = D >= 128 ? 64 : 128;  // keys per KV tile
   static constexpr int Q_BOX = BQ * SW;           // one box of the Q tile
-  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int Q_BYTES = BQ * DT * 2;
   static constexpr int KV_BOX = BK * SW;          // one box of a K or V tile
-  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int KV_BYTES = BK * DT * 2;
   // Q and O tiles, the KV stages, 1024 for alignment, 128 for the barriers
   // (D = 256: 32 + 32 + 128 KB + 1152 B = 197,760 B of the 232,448 a block may take)
   static constexpr int SMEM = 2 * Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 128;
@@ -355,7 +392,7 @@ __device__ __forceinline__ uint64_t opaque(uint64_t d) {
   return d;
 }
 
-// O (64 x D) += P (64 x 128, registers) V (128 x D): `dv` describes the V
+// O (64 x D) += P (64 x BK, registers) V (BK x D): `dv` describes the V
 // tile as an MN-major B operand; k-step kk advances 16 keys.
 template <int D>
 __device__ __forceinline__ void pv_product(float (&o)[D / 2],
@@ -365,8 +402,9 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
   for (int kk = 0; kk < T::BK / 16; ++kk) wgmma_rs<D>(o, p[kk], dv + ((kk * 16 * T::SW) >> 4));
 }
 
-// S (64 x 128) = Q K^T: `dq` describes this warpgroup's 64 rows of the Q
-// tile, `dk` a K tile (both K-major, swizzled); k-step kk advances both.
+// S (64 x BK) = Q K^T over the D true columns: `dq` describes this
+// warpgroup's 64 rows of the Q tile, `dk` a K tile (both K-major,
+// swizzled); k-step kk advances both.
 template <int D>
 __device__ __forceinline__ void qk_product(float (&s)[Tile<D>::BK / 2], uint64_t dq,
                                            uint64_t dk) {
@@ -631,8 +669,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     }
     it += n_kv;
 
-    // Normalise and write O to this warpgroup's rows of the O tile, swizzled
-    // as the O map expects, once the previous q-tile's store has read them.
+    // Normalise and write O's D columns to this warpgroup's rows of the O
+    // tile, swizzled as the O map expects, once the previous q-tile's store
+    // has read them.
     float inv[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -876,6 +915,7 @@ extern "C" int repro_flash_attention_smem_bytes(int dtype, int D) {
     switch (D) {
       case 32: return Tile<32>::SMEM;
       case 64: return Tile<64>::SMEM;
+      case 80: return Tile<80>::SMEM;
       case 128: return Tile<128>::SMEM;
       case 256: return Tile<256>::SMEM;
     }
@@ -883,6 +923,7 @@ extern "C" int repro_flash_attention_smem_bytes(int dtype, int D) {
     switch (D) {
       case 32: return (int)f32_smem_bytes<32>();
       case 64: return (int)f32_smem_bytes<64>();
+      case 80: return (int)f32_smem_bytes<80>();
       case 128: return (int)f32_smem_bytes<128>();
       case 256: return (int)f32_smem_bytes<256>();
     }
@@ -901,6 +942,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
     switch (D) {
       case 32: return launch_bf16<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 64: return launch_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
+      case 80: return launch_bf16<80>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 128: return launch_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 256: return launch_bf16<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
     }
@@ -908,6 +950,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
     switch (D) {
       case 32: return launch_f32<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 64: return launch_f32<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
+      case 80: return launch_f32<80>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 128: return launch_f32<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
       case 256: return launch_f32<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale_log2, causal, s);
     }

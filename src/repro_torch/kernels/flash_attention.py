@@ -5,6 +5,8 @@
 the port of the Pallas kernel ``repro/kernels/flash_attention.py``:
 GQA/MQA/MHA, online softmax in f32, causal mask aligned top-left
 (``q_pos >= k_pos`` from 0), ragged sequence edges masked in the kernel.
+Head dims ``HEAD_DIMS``; D=80 runs on D=128's tiles, the columns past 80
+filled with zeros by the kernel's loads (q, k and v are not padded here).
 
 ``flash_attention_plain`` computes the same function in plain PyTorch: one
 softmax block over all keys, the same top-left mask, ``p`` rounded to v's
@@ -19,7 +21,7 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

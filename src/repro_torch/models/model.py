@@ -1,5 +1,6 @@
-"""Model: config-driven decoder stacks (dense, SSM and hybrid families without
-experts or frontends so far).
+"""Model: config-driven decoder/encoder stacks (dense, SSM and hybrid
+families, and the audio-frame and vision-patch frontends; experts are not
+ported yet).
 
 Layers are stored **stacked by block position**, as in the JAX package:
 ``params["blocks"][j]`` holds the parameters of layers ``j, j+P, j+2P, ...``
@@ -13,6 +14,11 @@ and the SSD scan through its kernel, the counterpart of the JAX
 ``impl="pallas"``; ``impl="reference"`` keeps ``chunked_attention`` and
 ``ssd_chunked``.  Decode bypasses both kernels (``chunked_attention`` and
 the O(1) ``ssm_decode`` recurrence).
+
+The frontends are stubs, as in the JAX package: the model's inputs are
+precomputed frame embeddings (``frames``, the whole sequence) or patch
+embeddings (``vision_embeds``, projected by ``vis_proj`` into a prefix of
+the token embeddings).
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from repro_torch.tree import tree_map
 
 from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache, write_index
 from .mlp import mlp_fwd, mlp_init
-from .modules import _init, linear_init, rmsnorm, rmsnorm_init
+from .modules import _init, dynamic_slice_in_dim, linear, linear_init, rmsnorm, rmsnorm_init
 from .ssm import ssm_decode, ssm_fwd, ssm_init, ssm_init_cache
 
 IMPLS = ("kernel", "reference")
@@ -50,9 +56,9 @@ def _tree_index(tree, i: int):
 class Model:
     def __init__(self, cfg: ArchConfig, ctx: ParallelCtx = ParallelCtx.single(),
                  impl: str = "kernel", device="cuda"):
-        if cfg.n_experts or cfg.frontend != "none":
+        if cfg.n_experts:
             raise NotImplementedError(
-                f"{cfg.name}: configs with experts or a frontend are not ported yet")
+                f"{cfg.name}: configs with experts are not ported yet")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.cfg = cfg
@@ -77,6 +83,9 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = linear_init(generator, cfg.d_model, cfg.vocab_p, dtype=dt)
+        if cfg.frontend == "vision_patches":
+            params["vis_proj"] = linear_init(generator, cfg.frontend_dim, cfg.d_model,
+                                             bias=True, dtype=dt)
         blocks = []
         for j in range(P):
             blk = {"ln1": rmsnorm_init(generator, cfg.d_model, dt, (nb,))}
@@ -102,16 +111,39 @@ class Model:
             return self.init(gen)
 
     # ------------------------------------------------------------------ embed/head
-    def _embed_tokens(self, params, ids):
+    def _inputs_to_hidden(self, params, batch):
+        """The first hidden states: the frontend's prefix (``vis_proj`` of
+        the patch embeddings, or the frames in the model's dtype) and the
+        token embeddings, concatenated along the sequence.  Under SP with a
+        frontend every rank holds the whole sequence and enters the SP
+        region by taking its chunk (``dynamic_slice_in_dim`` at ``rank *
+        chunk``), as ``lax.dynamic_slice_in_dim`` at ``axis_index * chunk``
+        does in the JAX package."""
+        cfg, ctx = self.cfg, self.ctx
+        multi = cfg.frontend != "none"
+        parts = []
+        if cfg.frontend == "vision_patches":
+            parts.append(linear(params["vis_proj"], batch["vision_embeds"]))
+        if cfg.frontend == "audio_frames":
+            parts.append(batch["frames"].to(self.dtype))
+        if "tokens" in batch:
+            parts.append(self._embed_tokens(params, batch["tokens"], allow_sp=not multi))
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if multi and ctx.sp and ctx.tp_axis:
+            chunk = x.shape[1] // ctx.tp_size
+            x = dynamic_slice_in_dim(x, ctx.tp_index() * chunk, chunk, axis=1)
+        return x
+
+    def _embed_tokens(self, params, ids, allow_sp: bool = True):
         """Single device: row lookup with ``jnp.take``'s default semantics (a
         negative id counts from the end, an id out of range gives a row of
         NaN).  Under TP: the vocab-parallel lookup ``vp_embed`` in a
         ``vp_embed`` scope, the region the verifier's meta rule trusts (under
-        SP ``vp_embed_sp``, which scopes the partial lookup and leaves the
-        sequence reduce_scatter outside)."""
+        SP, unless ``allow_sp`` is off, ``vp_embed_sp``, which scopes the
+        partial lookup and leaves the sequence reduce_scatter outside)."""
         table = params["embed"]["w"]
         if self.ctx.tp_axis:
-            if self.ctx.sp:
+            if self.ctx.sp and allow_sp:
                 return vp_embed_sp(table, ids, self.ctx)
             with named_scope("vp_embed"):
                 return vp_embed(table, ids, self.ctx)
@@ -148,7 +180,7 @@ class Model:
         Python loop."""
         del unroll
         cfg, ctx = self.cfg, self.ctx
-        x = self._embed_tokens(params, batch["tokens"])
+        x = self._inputs_to_hidden(params, batch)
         S = x.shape[1] * (ctx.tp_size if ctx.sp else 1)
         positions = torch.arange(S, device=x.device)
         P = cfg.block_period

@@ -36,12 +36,40 @@ def silu(x):
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+@torch.library.custom_op("repro_torch::dynamic_slice", mutates_args=())
+def _dynamic_slice(x: torch.Tensor, start: torch.Tensor, axis: int,
+                   size: int) -> torch.Tensor:
+    """``lax.dynamic_slice_in_dim`` at a 0-d integer ``start`` on x's device:
+    a negative start counts from the end once, then the start is clamped so
+    the slice lies inside ``x``.  The indices are formed on the device, so
+    the slice needs no host sync (``narrow`` would read ``start`` back)."""
+    n = x.shape[axis]
+    s = torch.where(start < 0, start + n, start).clamp(0, n - size)
+    return x.index_select(axis, s + torch.arange(size, device=x.device))
+
+
+@_dynamic_slice.register_fake
+def _dynamic_slice_fake(x, start, axis, size):
+    shape = list(x.shape)
+    shape[axis] = size
+    return x.new_empty(shape)
+
+
+def dynamic_slice_in_dim(x, start, size: int, axis: int):
+    """``size`` entries of ``x`` along ``axis`` from the 0-d tensor ``start``
+    (a traced rank under the verifier's tracer, which lowers this op as
+    ``lax.dynamic_slice_in_dim`` traces)."""
+    return _dynamic_slice(x, start, axis % x.ndim, size)
+
+
 def _init(generator: torch.Generator, shape, scale: Optional[float] = None,
           dtype=torch.bfloat16):
+    """N(0, scale^2) values drawn in f32, scaled in place (one f32 copy
+    of the leaf at a time) and rounded to ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0] if shape else 1)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def linear_init(generator, d_in: int, d_out: int, *, bias: bool = False,

@@ -9,6 +9,7 @@ parameter set into the per-rank shards that TP execution runs on
 Megatron-style TP over axis "model" (the JAX package's table, dim for dim):
   embed (V,D)        -> vocab-parallel      P('model', None)
   lm_head (D,V)      -> column-parallel     P(None, 'model')
+  vis_proj w, b      -> replicated          P(None, None), P(None)
   wq/wk/wv (D,Hhd)   -> column-parallel     P(None, 'model')   [heads sharded]
   wo (Hhd,D)         -> row-parallel        P('model', None)
   mlp wg/wu (D,F)    -> column-parallel     P(None, 'model')
@@ -67,6 +68,8 @@ def _spec_for(path: tuple, ndim: int, tp: str) -> PartitionSpec:
         return P(tp, None)
     if parent == "lm_head":
         return P(None, tp)
+    if parent == "vis_proj":
+        return P(None, None) if leaf == "w" else P(None)
     # --- norms (replicated) -------------------------------------------------
     if parent in ("ln1", "ln2", "ln_f", "qnorm", "knorm") or leaf == "s":
         if parent == "out_norm":  # ssm gated norm: DI is head-sharded

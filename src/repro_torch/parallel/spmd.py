@@ -121,15 +121,18 @@ def _rank_model(rank: int, world: int, cfg, seed: int, impl: str, device: str,
     return Model(cfg, ctx, impl=impl, device=dev), params
 
 
-def tp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
-               impl: str = "kernel", device: str = "cuda", sp: bool = False) -> dict:
+def tp_forward(rank: int, world: int, cfg, seed: int, inputs, impl: str = "kernel",
+               device: str = "cuda", sp: bool = False) -> dict:
     """One rank of the TP forward pass of ``cfg`` (on the card unless
-    ``device`` says otherwise; sequence-parallel with ``sp``): returns this
+    ``device`` says otherwise; sequence-parallel with ``sp``) over
+    ``inputs``: tokens (B, S), or a batch dict (a frontend's frames, or
+    patches beside tokens), which every rank holds whole.  Returns this
     rank's vocab shard of the logits (on the CPU) and the forward time in
     ms."""
     model, params = _rank_model(rank, world, cfg, seed, impl, device, sp)
     dev = model.device
-    batch = {"tokens": tokens.to(dev)}
+    batch = tree_map(lambda t: t.to(dev),
+                     inputs if isinstance(inputs, dict) else {"tokens": inputs})
     with torch.inference_mode():
         if dev.type == "cuda":
             torch.cuda.synchronize()

@@ -26,22 +26,24 @@ def _children(x):
     return list(range(len(x))), list(x)
 
 
+def _flatten(x, path, is_leaf, out) -> Any:
+    if not _is_node(x, is_leaf):
+        out.append((path, x))
+        return "*"
+    keys, vals = _children(x)
+    kids = tuple(_flatten(v, path + (k,), is_leaf, out) for k, v in zip(keys, vals))
+    if isinstance(x, dict):
+        return ("dict", tuple(keys), kids)
+    return (type(x).__name__, len(kids), kids)
+
+
 def tree_flatten_with_path(tree, is_leaf: Callable | None = None):
     """``([(path, leaf), ...], treedef)``; a path is the tuple of dict keys
-    and sequence indices from the root to the leaf."""
+    and sequence indices from the root to the leaf.  (The recursion is a
+    module function: a recursive closure is a reference cycle, which would
+    keep the leaves alive until the cyclic collector runs.)"""
     out: list = []
-
-    def visit(x, path):
-        if not _is_node(x, is_leaf):
-            out.append((path, x))
-            return "*"
-        keys, vals = _children(x)
-        kids = tuple(visit(v, path + (k,)) for k, v in zip(keys, vals))
-        if isinstance(x, dict):
-            return ("dict", tuple(keys), kids)
-        return (type(x).__name__, len(kids), kids)
-
-    treedef = visit(tree, ())
+    treedef = _flatten(tree, (), is_leaf, out)
     return out, treedef
 
 
@@ -54,19 +56,19 @@ def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     return tree_flatten(tree, is_leaf)[0]
 
 
+def _build(td, it) -> Any:
+    if td == "*":
+        return next(it)
+    kind, keys, kids = td
+    vals = [_build(k, it) for k in kids]
+    if kind == "dict":
+        return dict(zip(keys, vals))
+    return tuple(vals) if kind == "tuple" else list(vals)
+
+
 def tree_unflatten(treedef, leaves) -> Any:
     it = iter(leaves)
-
-    def build(td):
-        if td == "*":
-            return next(it)
-        kind, keys, kids = td
-        vals = [build(k) for k in kids]
-        if kind == "dict":
-            return dict(zip(keys, vals))
-        return tuple(vals) if kind == "tuple" else list(vals)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree holds")
     return out

@@ -110,10 +110,16 @@ def round_layers(cfg, n_layers: Optional[int], stages: int = 1):
 
 
 def batch_avals(cfg, batch: int, seq: int):
-    """Batch input shapes for a forward trace.  Returns (b, seq).  (The
-    vision and audio frontends are not ported yet.)"""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: frontends are not ported yet")
+    """Batch input shapes for a forward trace (modality-aware).  Returns
+    (b, seq): a vision frontend grows seq to hold its prefix and 32 tokens
+    at least."""
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.frontend == "vision_patches":
+        seq = max(seq, cfg.frontend_len + 32)
+        return {"vision_embeds": ShapeDtype((batch, cfg.frontend_len, cfg.frontend_dim), dt),
+                "tokens": ShapeDtype((batch, seq - cfg.frontend_len), torch.int64)}, seq
+    if cfg.frontend == "audio_frames":
+        return {"frames": ShapeDtype((batch, seq, cfg.d_model), dt)}, seq
     return {"tokens": ShapeDtype((batch, seq), torch.int64)}, seq
 
 

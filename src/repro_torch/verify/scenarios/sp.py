@@ -27,11 +27,15 @@ from .tp import _tp_forward_parts
                 "around norm regions vs psum baseline)")
 def sp_forward(arch: str, cfg, plan, scen, ctx: BuildCtx) -> GraphPair:
     tp, batch = scen.size, plan.scenario_batch(scen)
-    if plan.seq % tp:
+    # validate against the seq actually traced: vision frontends grow it
+    # (batch_avals) and the grown length is what gets sequence-sharded
+    seq = (max(plan.seq, cfg.frontend_len + 32)
+           if cfg.frontend == "vision_patches" else plan.seq)
+    if seq % tp:
         raise PlanError(
-            f"sp-forward shards the sequence: seq={plan.seq} not divisible "
+            f"sp-forward shards the sequence: seq={seq} not divisible "
             f"by tp={tp}")
-    pair_fn = lambda c: _tp_forward_parts(arch, c, tp, batch, plan.seq, ctx,  # noqa: E731
+    pair_fn = lambda c: _tp_forward_parts(arch, c, tp, batch, plan.seq, ctx,
                                           sp=True)
     parts, trace_s, stamp_s, stamped = stamped_or_full(
         cfg, pair_fn, cfg.block_period, ctx.stamp)

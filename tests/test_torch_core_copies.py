@@ -19,9 +19,10 @@ COPIES = [
         "engine", "fusion", "layout", "legacy", "parshard", "propagator", "reduce",
         "registry", "sliceops")),
     "verify/plan.py", "verify/specs.py", "verify/scenarios/registry.py",
+    "verify/scenarios/sp.py",
     *(f"configs/{a}.py" for a in (
         "llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b", "gemma_2b",
-        "llama3_70b", "llama3_405b")),
+        "llama3_70b", "llama3_405b", "hubert_xlarge", "internvl2_26b")),
 ]
 
 # rewritten for torch, not copies
@@ -32,7 +33,6 @@ KNOWN_EXCEPTIONS = {
     "core/__init__.py": "exports the port's tracer",
     "verify/scenarios/harness.py": "shapes are ShapeDtype / fake tensors",
     "verify/scenarios/tp.py": "the rank is a traced input; decode traced functionalized",
-    "verify/scenarios/sp.py": "no vision frontend to grow the sequence",
     "verify/store.py": "the rules hash keys on the torch version",
     "verify/session.py": "the lint tier is not ported",
     "verify/cli.py": "the lint tier and unported scenarios exit 2",

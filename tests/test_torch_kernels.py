@@ -112,15 +112,38 @@ def test_flash_plain_head_dim_256(shape, dtype):
     _assert_no_launch()
 
 
+# hubert_xlarge's head dim (d_model 1280 over 16 heads), no multiple of a
+# 64-column tile: MHA non-causal as hubert runs it, GQA and MQA, ragged and
+# not; causal Sq != Sk against the interpret kernel only (see above)
+D80 = [(2, 4, 4, 96, 96, 80), (1, 4, 2, 64, 160, 80), (2, 2, 1, 160, 64, 80)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", D80)
+def test_flash_plain_head_dim_80(shape, dtype, causal):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(*shape, dtype, seed=13)
+    out = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    if not (causal and shape[3] != shape[4]):
+        np.testing.assert_allclose(
+            _np(out), _np(_attention_ref(jq, jk, jv, causal=causal)), **_tol(dtype))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                                interpret=True)
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
+    _assert_no_launch()
+
+
 def test_flash_wrapper_takes_head_dims(monkeypatch):
     """Past the device check, the wrapper takes every D of HEAD_DIMS,
-    gemma_2b's 256 included, and refuses the others (hubert_xlarge's 80)."""
+    gemma_2b's 256 and hubert_xlarge's 80 included, and refuses the others
+    (a D the kernel lacks, 96, and one past its tiles, 512)."""
     monkeypatch.setattr(fa.build, "require_hopper", lambda t: None)
-    assert 256 in fa.HEAD_DIMS
+    assert 256 in fa.HEAD_DIMS and 80 in fa.HEAD_DIMS
     for D in fa.HEAD_DIMS:
         (_, tq), (_, tk), (_, tv) = _qkv(1, 2, 1, 8, 8, D, "bfloat16")
         fa._check(tq, tk, tv)
-    for bad in (80, 512):
+    for bad in (96, 512):
         (_, tq), (_, tk), (_, tv) = _qkv(1, 2, 1, 8, 8, bad, "bfloat16")
         with pytest.raises(ValueError, match="head dim"):
             fa._check(tq, tk, tv)

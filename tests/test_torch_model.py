@@ -6,7 +6,11 @@ biases (qwen1_5_4b), half-dim RoPE with 2 KV heads (chatglm3_6b), GeGLU, MQA
 and tied embeddings (gemma_2b) and tied embeddings on a SwiGLU model (a
 SMOKE variant with ``tie_embeddings=True``).  The decode position may be a
 0-d tensor, as the engine passes it: the same logits and caches as the int,
-also where the write wraps or clamps."""
+also where the write wraps or clamps.  The frontends (hubert_xlarge's audio
+frames through a non-causal GELU encoder, internvl2_26b's projected patch
+prefix before the token embeddings) give the JAX forward's logits from the
+same frames or patches; ``input_specs`` and ``skip_reason`` give the JAX
+package's records."""
 import dataclasses
 import functools
 
@@ -20,13 +24,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
-from repro_torch.configs import ArchConfig, get_config  # noqa: E402
+from repro.configs import base as jax_base  # noqa: E402
+from repro_torch.configs import SHAPES, ArchConfig, get_config, input_specs, skip_reason  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.weights import params_from_jax  # noqa: E402
 
 ARCHS = ["llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b", "gemma_2b"]
+FRONTENDS = ["hubert_xlarge", "internvl2_26b"]
 # jamba's SMOKE without experts: a JAX-valid hybrid with attention at layer 2
 # of a period of 4 and SSD layers elsewhere, for the mixed cache tuple
 HYBRID = "jamba_1_5_large-noexperts"
@@ -110,7 +116,7 @@ def _tokens(B=2, S=24, vocab=256, seed=0):
 
 
 def test_config_port_matches_jax():
-    for arch in ARCHS:  # TIED and HYBRID are built from the JAX config itself
+    for arch in ARCHS + FRONTENDS:  # TIED and HYBRID are built from the JAX config itself
         for smoke in (False, True):
             j = dataclasses.asdict(jax_config(arch, smoke=smoke))
             t = dataclasses.asdict(get_config(arch, smoke=smoke))
@@ -213,13 +219,177 @@ def test_out_of_range_tokens_match_jax(pair):
     np.testing.assert_allclose(got[0, :2], want[0, :2], **TOL[dtype])
 
 
+def _frontend_batch(cfg, B=2, S=24, seed=5):
+    """(JAX batch, port batch) for a frontend arch: frames over the whole
+    sequence (audio), or a patch prefix and S - frontend_len tokens
+    (vision); the float inputs in the config's dtype, the same values in
+    both."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        parts = {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)}
+    else:
+        parts = {"vision_embeds": rng.standard_normal(
+                     (B, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32),
+                 "tokens": _tokens(B, S - cfg.frontend_len, cfg.vocab, seed)}
+    jb = {k: jnp.asarray(v).astype(cfg.dtype) if v.dtype == np.float32 else jnp.asarray(v)
+          for k, v in parts.items()}
+    tb = {k: torch.from_numpy(v).to(getattr(torch, cfg.dtype)) if v.dtype == np.float32
+          else torch.from_numpy(v).long() for k, v in parts.items()}
+    return jb, tb
+
+
+def _frontend_pair(arch: str, dtype: str):
+    """``_pair`` with ``vis_proj``'s bias drawn at random (the JAX init
+    zeroes it), so that the prefix's bias add shows."""
+    jm, jp, tcfg, tp, dtype = _pair(arch, dtype)
+    if "vis_proj" in jp:
+        b = np.random.default_rng(9).standard_normal(jp["vis_proj"]["b"].shape) * 0.5
+        jp = {**jp, "vis_proj": {**jp["vis_proj"], "b": jnp.asarray(b, jp["vis_proj"]["b"].dtype)}}
+        tp = {**tp, "vis_proj": params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jp["vis_proj"]), "cpu")}
+    return jm, jp, tcfg, tp, dtype
+
+
+@pytest.mark.parametrize("impl", ["kernel", "reference"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_frontend_forward_matches_jax(arch, dtype, impl):
+    """hubert_xlarge: frames through 2 non-causal layers (GELU MLPs) and
+    the 64-row head; internvl2_26b: ``vis_proj`` (with bias) of 8 patch
+    embeddings before 16 token embeddings, through 2 causal GQA layers."""
+    jm, jp, tcfg, tp, dtype = _frontend_pair(arch, dtype)
+    assert ("vis_proj" in tp) == (tcfg.frontend == "vision_patches")
+    jb, tb = _frontend_batch(tcfg)
+    want = jax.jit(jm.forward)(jp, jb)
+    got = Model(tcfg, impl=impl, device="cpu").forward(tp, tb)
+    assert got.shape == want.shape == (2, 24, tcfg.vocab_p)
+    assert got.dtype == getattr(torch, dtype)
+    _assert_close(got, want, dtype, tcfg)
+    assert fa.flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("impl", ["kernel", "reference"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hubert_full_width_forward_matches_jax(dtype, impl):
+    """hubert_xlarge at its published widths (d_model 1280, 16 heads of
+    80, the GELU MLP's 5120, the 512-row head), cut to one layer: the
+    same weights and frames (2, 32) give the JAX forward's logits."""
+    jcfg = dataclasses.replace(jax_config("hubert_xlarge"), n_layers=1)
+    jm = JaxModel(dataclasses.replace(jcfg, dtype=dtype))
+    f32 = jax.jit(JaxModel(dataclasses.replace(jcfg, dtype="float32")).init)(
+        jax.random.PRNGKey(0))
+    jp = jax.tree_util.tree_map(lambda a, t: a.astype(t.dtype), f32,
+                                jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    tcfg = ArchConfig(**dataclasses.asdict(jm.cfg))
+    jb, tb = _frontend_batch(tcfg, S=32)
+    want = jax.jit(jm.forward)(jp, jb)
+    got = Model(tcfg, impl=impl, device="cpu").forward(tp, tb)
+    assert got.shape == want.shape == (2, 32, 512)
+    _assert_close(got, want, dtype, tcfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_internvl_full_width_prefix_matches_jax(dtype):
+    """internvl2_26b's first hidden states at its published widths:
+    ``vis_proj`` (3200 -> 6144, a random bias) of 256 patches before 32
+    token embeddings, as the JAX model forms them.  The embedding table
+    has 1024 of the vocabulary's rows, enough for these tokens."""
+    jcfg = dataclasses.replace(jax_config("internvl2_26b"), dtype=dtype)
+    tcfg = ArchConfig(**dataclasses.asdict(jcfg))
+    rng = np.random.default_rng(3)
+    d, f = jcfg.d_model, jcfg.frontend_dim
+    weights = {"embed": {"w": rng.standard_normal((1024, d)) * 0.02},
+               "vis_proj": {"w": rng.standard_normal((f, d)) / np.sqrt(f),
+                            "b": rng.standard_normal(d) * 0.5}}
+    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), weights)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    jb, tb = _frontend_batch(dataclasses.replace(tcfg, vocab=1024), B=1,
+                             S=jcfg.frontend_len + 32)
+    want = jax.jit(JaxModel(jcfg)._inputs_to_hidden)(jp, jb)
+    got = Model(tcfg, device="cpu")._inputs_to_hidden(tp, tb)
+    assert got.shape == want.shape == (1, 288, 6144)
+    _assert_close(got, want, dtype, tcfg, kind="hidden")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_empty_vision_prefix_is_the_decode_step(dtype):
+    """internvl2_26b with a prefix of no patches, (1, 0, frontend_dim): the
+    forward gives the JAX forward's logits and, at every position, the
+    logits of ``decode_step`` fed the same tokens one at a time (the check
+    the serve phase makes on the card)."""
+    jm, jp, tcfg, tp, dtype = _frontend_pair("internvl2_26b", dtype)
+    toks = _tokens(1, 6, tcfg.vocab, seed=6)
+    empty = np.zeros((1, 0, tcfg.frontend_dim), np.float32)
+    want = jax.jit(jm.forward)(jp, {"vision_embeds": jnp.asarray(empty).astype(dtype),
+                                    "tokens": jnp.asarray(toks)})
+    model = Model(tcfg, device="cpu")
+    got = model.prefill(tp, {"vision_embeds": torch.from_numpy(empty).to(getattr(torch, dtype)),
+                             "tokens": torch.from_numpy(toks).long()})
+    _assert_close(got, want, dtype, tcfg)
+    caches = model.init_cache(1, 8)
+    for t in range(toks.shape[1]):
+        step, caches = model.decode_step(tp, torch.from_numpy(toks[:, t]).long(), caches, t)
+        _assert_close(step, got[:, t], dtype, tcfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "internvl2_26b"])
+def test_dropped_weights_are_freed_without_the_cyclic_collector(arch):
+    """A model's weights go when the caller drops them, after a prefill and
+    a decode step, with no cyclic garbage collection (a reference cycle
+    kept a full-width model's block weights alive on the card until the
+    collector ran, and internvl2_26b's weights did not fit beside them)."""
+    import gc
+    import weakref
+
+    cfg = get_config(arch, smoke=True)
+    gc.disable()
+    try:
+        model = Model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        watched = [weakref.ref(params["blocks"][0]["ln1"]["s"]),
+                   weakref.ref(params["embed"]["w"])]
+        _, tb = _frontend_batch(cfg) if cfg.frontend != "none" else (
+            None, {"tokens": torch.from_numpy(_tokens(S=8)).long()})
+        with torch.inference_mode():
+            model.prefill(params, tb)
+            model.decode_step(params, torch.tensor([1, 2]), model.init_cache(2, 8), 0)
+        del model, params
+        assert all(w() is None for w in watched)
+    finally:
+        gc.enable()
+
+
+def test_input_specs_and_skips_match_jax():
+    """Every ported arch x shape cell: the same input names, shapes and
+    dtypes as the JAX ``input_specs``, and the same skip strings."""
+    import importlib.util
+
+    archs = [a for a in jax_base.ARCH_IDS + jax_base.EXTRA_IDS
+             if importlib.util.find_spec(f"repro_torch.configs.{a}")]
+    assert set(ARCHS + FRONTENDS) <= set(archs)
+    assert list(SHAPES) == list(jax_base.SHAPES)
+    for arch in archs:
+        cfg, jcfg = get_config(arch), jax_config(arch)
+        for shape in SHAPES:
+            assert skip_reason(cfg, shape) == jax_base.skip_reason(jcfg, shape)
+            got, want = input_specs(cfg, shape), jax_base.input_specs(jcfg, shape)
+            assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                    for k, v in got.items()} == {
+                k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}
+    assert skip_reason(get_config("hubert_xlarge"), "decode_32k") == (
+        "encoder-only architecture has no decode step")
+
+
 def test_unported_families_and_missing_gpu_raise():
     cfg = get_config("qwen3_4b", smoke=True)
-    # experts (dense MoE, and a jamba-like hybrid with experts) and frontends
+    # experts (dense MoE, and a jamba-like hybrid with experts); the
+    # frontends construct
     for change in ({"ssm_state": 16, "attn_period": 4, "n_experts": 4, "top_k": 2},
-                   {"n_experts": 4, "top_k": 2}, {"frontend": "audio_frames"}):
+                   {"n_experts": 4, "top_k": 2}):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **change), device="cpu")
+    Model(dataclasses.replace(cfg, frontend="audio_frames"), device="cpu")
     with pytest.raises(ValueError):
         Model(cfg, impl="pallas", device="cpu")
     with pytest.raises(ModuleNotFoundError):

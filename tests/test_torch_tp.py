@@ -10,7 +10,10 @@ logits, and each rank's final cache shards (``cache_specs``), against the
 single-device ``decode_step``, each leaf to the same relative RMS error.
 The data-parallel forward (every rank holding every parameter, the batch
 split by rows) gives each rank its rows of the single-device logits, and
-the data axis' psum and pmean are all_reduces over the ranks."""
+the data axis' psum and pmean are all_reduces over the ranks.  The
+frontends (hubert_xlarge's frames, internvl2_26b's patch prefix) under TP
+and SP: under SP every rank holds the whole concatenated sequence and takes
+its chunk with ``repro_torch::dynamic_slice`` at its rank."""
 import dataclasses
 
 import pytest
@@ -65,6 +68,28 @@ def test_sp_logits_equal_single_device(tp):
     with torch.inference_mode():
         want = model.forward(params, {"tokens": tokens})
     ranks = spmd.run(spmd.tp_forward, tp, (cfg, SEED, tokens, "reference", "cpu", True),
+                     timeout=300)
+    got = torch.cat([r["logits"] for r in ranks], dim=-1)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= REL_RMS
+
+
+@pytest.mark.parametrize("arch,tp,sp", [("hubert_xlarge", 4, False), ("hubert_xlarge", 2, True),
+                                        ("internvl2_26b", 2, False), ("internvl2_26b", 4, True)])
+def test_frontend_tp_and_sp_logits_equal_single_device(arch, tp, sp):
+    cfg = _cfg(arch, tp)
+    gen = torch.Generator().manual_seed(6)
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": torch.randn((2, 16, cfg.d_model), generator=gen)}
+    else:
+        batch = {"vision_embeds": torch.randn((2, cfg.frontend_len, cfg.frontend_dim),
+                                              generator=gen),
+                 "tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen)}
+    model = Model(cfg, impl="reference", device="cpu")
+    params = model.init(torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        want = model.forward(params, batch)
+    ranks = spmd.run(spmd.tp_forward, tp, (cfg, SEED, batch, "reference", "cpu", sp),
                      timeout=300)
     got = torch.cat([r["logits"] for r in ranks], dim=-1)
     assert got.shape == want.shape

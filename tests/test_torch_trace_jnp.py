@@ -5,10 +5,13 @@ the same parameters where the rules read them.  The cases are GeGLU's tanh
 ``torch.cumsum``, ``torch.stack``, einsums over three operands, whose
 contraction order depends on the shapes),
 the decode step's cache write (``index_copy_`` at a wrapped and clamped
-index, traced functionalized), the sequence-parallel collectives, and the
-ATen spellings of a matmul, ``x[:, None]``, a unit-dim index, an f32
-product of bf16 operands and ``c / x``."""
+index, traced functionalized), the sequence-parallel collectives, the
+frontends' prefix (``x @ w + b`` concatenated with token embeddings) and
+their entry into the SP region (``dynamic_slice_in_dim`` at ``rank *
+chunk``), and the ATen spellings of a matmul, ``x[:, None]``, a unit-dim
+index, an f32 product of bf16 operands and ``c / x``."""
 import jax
+import numpy as np
 import jax.numpy as jnp
 import pytest
 from jax import lax
@@ -22,7 +25,7 @@ from repro.core.trace import trace as jtrace  # noqa: E402
 from repro.core.trace import trace_sharded as jtrace_sharded  # noqa: E402
 from repro_torch.core.trace import ShapeDtype, trace, trace_sharded  # noqa: E402
 from repro_torch.models.attention import write_index  # noqa: E402
-from repro_torch.models.modules import einsum_f32  # noqa: E402
+from repro_torch.models.modules import dynamic_slice_in_dim, einsum_f32  # noqa: E402
 from repro_torch.parallel.sharding import P  # noqa: E402
 
 F32 = (torch.float32, jnp.float32)
@@ -210,3 +213,60 @@ def test_sequence_parallel_collectives_follow_lax():
     for op, key in (("reduce_scatter", "scatter_dimension"),
                     ("all_gather", "all_gather_dimension")):
         assert _param(g, op, key) == _param(jg, op, key)
+
+
+def test_frontend_prefix_and_sp_slice_follow_lax():
+    """A projected patch prefix (``x @ w + b``) concatenated with token
+    embeddings along the sequence, then this rank's chunk of it, as the
+    frontends enter the SP region: one ``concat`` and
+    ``lax.dynamic_slice_in_dim``'s IR, the ``axis_index * chunk`` start on
+    axis 1 after jnp's wrap (``select(s < 0, s, s + n)``), constant zeros
+    on the other axes."""
+    def tfn(ctx, v, w, b, t):
+        x = torch.cat([v @ w + b, t], dim=1)
+        chunk = x.shape[1] // 4
+        return dynamic_slice_in_dim(x, ctx.rank * chunk, chunk, axis=1) * 2
+
+    def jfn(v, w, b, t):
+        x = jnp.concatenate([v @ w + b, t], axis=1)
+        chunk = x.shape[1] // 4
+        return lax.dynamic_slice_in_dim(x, lax.axis_index("model") * chunk, chunk, axis=1) * 2
+
+    shapes = [(2, 4, 6), (6, 8), (8,), (2, 12, 8)]
+    g, _, _ = trace_sharded(tfn, 4, (P(),) * 4,
+                            *[ShapeDtype(s, torch.bfloat16) for s in shapes])
+    jg, _, _ = jtrace_sharded(jfn, abstract_mesh((4,), ("model",)), (JP(),) * 4, JP(),
+                              *[jax.ShapeDtypeStruct(s, jnp.bfloat16) for s in shapes])
+    assert _body(g) == _body(jg) == ["dot", "broadcast", "add", "concat", "axis_index", "mul",
+                                     "lt", "add", "select", "dynamic_slice", "mul"]
+    assert _param(g, "concat", "dimension") == _param(jg, "concat", "dimension") == [1]
+    assert _param(g, "dynamic_slice", "slice_sizes") == [(2, 4, 8)]
+    assert _param(jg, "dynamic_slice", "slice_sizes") == [(2, 4, 8)]
+
+    def starts(graph):
+        ds = next(n for n in graph if n.op == "dynamic_slice")
+        out = []
+        for i in ds.inputs[1:]:
+            n = graph[i]
+            if n.op == "const":
+                out.append(("const", n.param("value")))
+            else:  # select(lt(s, 0), s, s + n) over s = axis_index * chunk
+                pred, s, wrapped = (graph[j] for j in n.inputs)
+                out.append((n.op, pred.op, s.op, [graph[j].op for j in s.inputs],
+                            [graph[j].param("value") for j in s.inputs
+                             if graph[j].op == "const"], wrapped.op,
+                            [graph[j].param("value") for j in wrapped.inputs
+                             if graph[j].op == "const"]))
+        return out
+
+    assert starts(g) == starts(jg) == [
+        ("const", 0), ("select", "lt", "mul", ["axis_index", "const"], [4], "add", [16]),
+        ("const", 0)]
+
+
+@pytest.mark.parametrize("start", [-5, 0, 3, 9, 40])  # wraps once; clamps past the end
+def test_dynamic_slice_matches_lax(start):
+    x = np.arange(2 * 12 * 3, dtype=np.float32).reshape(2, 12, 3)
+    got = dynamic_slice_in_dim(torch.from_numpy(x), torch.tensor(start), 4, axis=1)
+    want = lax.dynamic_slice_in_dim(jnp.asarray(x), jnp.int32(start), 4, axis=1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
