@@ -21,26 +21,38 @@ chatglm3_6b (half-dim RoPE, 2 KV heads padded to 16) and gemma_2b (head dim
 non-causal layers at head dim 80, GELU MLPs; prefill only: the serving
 launcher must refuse the encoder with exit 1) and internvl2_26b (a
 ``vis_proj`` prefix of 256 patches before 768 tokens, 48 causal GQA layers;
-prefill, then serve on text prompts).  Every prefill's inputs are named
+prefill, then serve on text prompts); then the MoE archs: granite_moe_3b
+(32 layers, 40 experts padded to 48, top 8; K1 at head dim 64; prefill
+through the capacity dispatch, with the pairs capacity dropped and the
+tokens whose top-k sets differ between the kernel and reference paths;
+the dispatch against a plain per-expert loop; serve) and mixtral_8x7b cut
+to 8 of its 32 layers (8 experts of width 14336, top 2; prefill and the
+dispatch check).  Every prefill's inputs are named
 and typed as ``input_specs`` gives them.  Then the verifier's main path:
 verify (the port's ``Session`` proves, at full width and depth, tp-forward
 and tp-decode at tp 4 for llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b,
 chatglm3_6b, gemma_2b and internvl2_26b, sp-forward at tp 4 for llama3_8b,
 gemma_2b, hubert_xlarge and internvl2_26b, tp-forward at tp 4 for
-hubert_xlarge and at tp 16 for llama3_70b and llama3_405b, and dp-forward
-at dp 2 for gemma_2b and llama3_8b; host seconds and memo hits beside the
-JAX reference's), campaign (every registered injector on llama3_8b's tp4
-tp-forward, tp-decode and sp-forward pairs, mamba2_130m's tp-forward pair,
-gemma_2b's tp-forward and dp-forward pairs, hubert_xlarge's tp-forward pair
-and internvl2_26b's sp-forward pair, each cell's outcome and localization
-held to the JAX reference's),
+hubert_xlarge and at tp 16 for llama3_70b and llama3_405b, dp-forward
+at dp 2 for gemma_2b and llama3_8b, and the MoE plans: granite_moe_3b's
+tp-forward, ep-moe-forward, tp-decode and sp-forward at 4, moonshot_v1_16b's
+and mixtral_8x7b's tp-forward and ep-moe-forward at 4, mixtral_8x7b and
+mixtral_8x22b at tp 16, jamba_1_5_large's tp-forward at 4; host seconds and
+memo hits beside the JAX reference's), campaign (every registered injector
+on llama3_8b's tp4 tp-forward, tp-decode and sp-forward pairs, mamba2_130m's
+tp-forward pair, gemma_2b's tp-forward and dp-forward pairs, hubert_xlarge's
+tp-forward pair, internvl2_26b's sp-forward pair, and granite_moe_3b's and
+mixtral_8x7b's tp-forward, tp-decode, sp-forward and ep-moe-forward pairs,
+each cell's outcome and localization held to the JAX reference's),
 dp_forward (the verifier's dp-forward program on two gloo ranks sharing the
 card, gemma_2b at full width and depth, flash attention on every layer of
 every rank; each rank's logits held to its rows of the single-device
 forward), tp_forward (the per-rank TP program the verifier
 proves, run on four gloo ranks sharing the card, llama3_8b at full width
-with two layers, flash attention on every layer of every rank; logits
-gathered on rank 0 and held to the single-device model), tp_decode (the
+with two layers, then granite_moe_3b at full width with four layers, 12 of
+its 48 experts a rank, flash attention on every layer of every rank;
+logits gathered on rank 0 and held to the single-device model; the pairs
+each rank's experts dropped beside the single device's), tp_decode (the
 proved per-rank decode step on the same four ranks: a 32-token prompt fed
 one position at a time, then 8 more steps; every step's logits and the
 final KV cache shards held to the single-device ``decode_step``) and
@@ -77,7 +89,9 @@ from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import mlp  # noqa: E402
 from repro_torch.parallel import spmd  # noqa: E402
+from repro_torch.parallel.ctx import ParallelCtx  # noqa: E402
 from repro_torch.parallel.sharding import cache_specs, shard_params  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.verify import Plan, Session, run_campaign  # noqa: E402
@@ -180,6 +194,15 @@ CAMPAIGN_REFERENCE = {
     ("internvl2_26b", "sp-forward"): _reference(mislocalized=(
         "drop_all_reduce", "duplicate_all_reduce", "wrong_collective_axis",
         "wrong_replica_groups")),
+    # the MoE archs: the experts' all_reduce beside the attention's, so
+    # sp-forward has all_reduces too; a dropped all_reduce in sp-forward and
+    # in ep-moe-forward is detected but not localized, in both packages
+    **{(arch, kind): _reference(
+        *(() if kind == "sp-forward" else ("wrong_all_gather_dim", "wrong_scatter_dim")),
+        mislocalized=("drop_all_reduce",) if kind in ("sp-forward", "ep-moe-forward")
+        else ())
+       for arch in ("granite_moe_3b", "mixtral_8x7b")
+       for kind in ("tp-forward", "tp-decode", "sp-forward", "ep-moe-forward")},
 }
 DP_SIZE = 2
 # The plans the verify phase proves at full width and depth, (arch, scenario,
@@ -200,6 +223,18 @@ VERIFY_PLANS = {
     ("hubert_xlarge", "tp-forward", TP_SIZE): 46, ("hubert_xlarge", "sp-forward", TP_SIZE): 46,
     ("internvl2_26b", "tp-forward", TP_SIZE): 46, ("internvl2_26b", "tp-decode", TP_SIZE): 93,
     ("internvl2_26b", "sp-forward", TP_SIZE): 46,
+    # the MoE archs; mixtral_8x7b at tp 16 and mixtral_8x22b at tp 16 are
+    # Table 2's M1 and M2 rows, mixtral_8x7b at ep 4 its E1 row
+    ("granite_moe_3b", "tp-forward", TP_SIZE): 30,
+    ("granite_moe_3b", "ep-moe-forward", TP_SIZE): 30,
+    ("granite_moe_3b", "tp-decode", TP_SIZE): 61,
+    ("granite_moe_3b", "sp-forward", TP_SIZE): 30,
+    ("moonshot_v1_16b", "tp-forward", TP_SIZE): 46,
+    ("moonshot_v1_16b", "ep-moe-forward", TP_SIZE): 46,
+    ("mixtral_8x7b", "tp-forward", TP_SIZE): 30,
+    ("mixtral_8x7b", "ep-moe-forward", TP_SIZE): 30,
+    ("mixtral_8x7b", "tp-forward", 16): 30, ("mixtral_8x22b", "tp-forward", 16): 54,
+    ("jamba_1_5_large", "tp-forward", TP_SIZE): 66,
 }
 # llama3_8b TP-4 serving step (TP_LAYERS layers, batch 2) against the
 # single-device decode_step: a TP_DECODE_PROMPT-token prompt fed one
@@ -226,6 +261,44 @@ TP_DECODE_CACHE_REL_RMS = 2e-2
 # it.  A rank that computes another rank's rows reads about 1.4.
 DP_TOKENS = (2, 1024)
 DP_LOGIT_BOUNDS = TP_LOGIT_BOUNDS
+# MoE logits (RMS about 1) against another run of the same model, as three
+# limits: (relative RMS error, max abs error) over every token ("all"); the
+# same over the tokens that both runs route alike, with equal top-k expert
+# sets in every MoE layer ("stable"); and the share of (token, MoE layer)
+# pairs whose top-k sets differ ("flip_share").  Both runs take the same
+# capacity dispatch.  The prefill's runs differ in attention's rounding
+# (kernel against reference path), the TP run's in the order of its
+# row-parallel sums.  In bf16 a rounding that moves a token's router
+# probabilities across a near-tie sends it to other experts (and may push
+# its pairs past capacity): that token moves by a whole expert output, and
+# through attention the tokens after it.  scripts/moe_logit_bounds.py
+# emulates each comparison with plain paths on the card (the prefill: key
+# chunks of 64 against 1024; TP: four gloo ranks, rank 0's routing against
+# the single device's) and read (PERF.md, PR 18 call 2; f32: no flip,
+# 1e-6): granite_moe_3b 2.90% and 0.352 over all tokens, 1.52% and 0.156
+# over the 172 of 2048 tokens routed alike in all 32 layers, 12.8% of
+# token-layers flipped; mixtral_8x7b (8 layers) 12.2% and 3.18, 3.66% and
+# 1.19, 4.1%; granite's TP-4 program (4 layers) 3.58% and 1.49, 1.79% and
+# 0.572, 10.0%.  Each limit is about 3x its reading.
+MOE_BOUNDS = {
+    "granite_moe_3b": {"all": (9e-2, 1.1), "stable": (4.5e-2, 0.5), "flip_share": 0.4},
+    "mixtral_8x7b": {"all": (0.37, 9.5), "stable": (0.11, 3.6), "flip_share": 0.13},
+    "tp": {"all": (0.11, 4.5), "stable": (5.5e-2, 1.7), "flip_share": 0.3},
+}
+MIXTRAL_LAYERS = 8
+# The capacity dispatch of one MoE layer against a plain per-expert loop
+# (the first C pairs routed to each expert, in token order, each token the
+# weighted sum of its kept pairs' expert outputs, in f32), on the card, at
+# the prefill's token count: (allclose rtol = atol, relative RMS error).
+# The dispatch rounds each expert's output and the weighted sum in bf16,
+# the loop in f32; a pair dropped or kept wrongly moves its token by a
+# whole expert output.
+MOE_DISPATCH_TOL = (5e-2, 2e-2)
+# granite_moe_3b's execution program on TP_SIZE gloo ranks (experts split
+# over the ranks, each running the capacity dispatch for its own) against
+# the single device, MOE_TP_LAYERS layers, tokens TP_TOKENS, held to
+# MOE_BOUNDS["tp"].
+MOE_TP_LAYERS = 4
 
 FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, and the name of a main
     # path's shape, which is timed (None: checked only)
@@ -274,6 +347,10 @@ FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, and the name of a main
     (1, 2, 2, 96, 130, 80, torch.float32, False),
     # internvl2_26b's prefill: 48 q-heads over 8 KV heads padded to 16 (G = 3)
     (2, 48, 16, 1024, 1024, 128, torch.bfloat16, True, "internvl2_26b"),
+    # granite_moe_3b (head dim 64, 24 q-heads over 8 KV heads padded to 32
+    # over 16): its prefill and a TP-4 rank's shape (the tp_forward phase)
+    (2, 32, 16, 1024, 1024, 64, torch.bfloat16, True, "granite_moe_3b"),
+    (1, 8, 4, 1024, 1024, 64, torch.bfloat16, True, "granite_moe_3b_tp4"),
 ]
 FA_CASES = [c if len(c) == 9 else (*c, None) for c in FA_CASES]
 RN_CASES = [  # rows, D, dtype; the first two are timed
@@ -418,6 +495,35 @@ def logit_check(name: str, out, ref, bounds=(LOGIT_REL_RMS, LOGIT_MAX_ABS)) -> d
         raise AssertionError(f"{name}: rel rms err {rel}, max abs err {mx}")
     return {"rel_rms_err": rel, "max_abs_err": mx, "tol_rel_rms": bounds[0],
             "tol_max_abs": bounds[1]}
+
+
+def flipped_tokens(got: list, ref: list):
+    """(T,) bool: the tokens whose top-k expert sets differ between two
+    runs' routings (lists of (T, K) ids, one per MoE layer) in some layer."""
+    out = torch.zeros(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    for a, b in zip(got, ref):
+        out |= (a.sort(-1).values != b.to(a.device).sort(-1).values).any(-1)
+    return out
+
+
+def moe_logit_check(name: str, out, ref, got: list, want: list, bounds: dict) -> dict:
+    """``logit_check`` of a MoE model's logits (B, S, V) under the three
+    limits of ``MOE_BOUNDS`` (see there); ``got`` and ``want`` are the two
+    runs' routings."""
+    flipped = flipped_tokens(got, want)
+    V = out.shape[-1]
+    stable = ~flipped.to(out.device)
+    check = logit_check(name, out, ref, bounds["all"])
+    check["stable_tokens"] = logit_check(
+        f"{name}, tokens routed alike", out.reshape(-1, V)[stable],
+        ref.to(out.device).reshape(-1, V)[stable], bounds["stable"])
+    flips = sum(int(topk_flips(a, b.to(a.device))) for a, b in zip(got, want))
+    share = flips / (len(got) * got[0].shape[0])
+    check.update(flipped_tokens=int(flipped.sum()), topk_set_flips=flips,
+                 flip_share=share, tol_flip_share=bounds["flip_share"])
+    if share > bounds["flip_share"]:
+        raise AssertionError(f"{name}: {share} of the token-layers routed differently")
+    return check
 
 
 def mamba2_dt_A(gen: torch.Generator, shape) -> tuple[torch.Tensor, torch.Tensor]:
@@ -665,26 +771,103 @@ def phase_ssd(gen) -> dict:
 
 def phase_prefill(cfg, model, params, gen, shape, bounds=(LOGIT_REL_RMS, LOGIT_MAX_ABS)
                   ) -> dict:
+    """One timed prefill through the kernels, held to the reference path.
+    A MoE config's routing is recorded on both paths: the pairs capacity
+    dropped on each, and the tokens whose top-k expert sets differ."""
     batch = draw_batch(cfg, gen, *shape)
     model.prefill(params, batch)  # warm-up
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    logits = model.prefill(params, batch)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with mlp.record_routing() as routing:
+        t0 = time.perf_counter()
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = counts()
     n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
     want = {"flash_attention": n_attn, "rmsnorm": 0, "ssd_scan": cfg.n_layers - n_attn}
     if launches != want:
         raise AssertionError(f"one prefill launched {launches}, expected {want}")
-    ref = Model(cfg, impl="reference", device="cuda").forward(params, batch)
-    check = logit_check("prefill kernel vs reference", logits, ref, bounds)
+    with mlp.record_routing() as ref_routing:
+        ref = Model(cfg, impl="reference", device="cuda").forward(params, batch)
+    moe = {}
+    if cfg.n_experts:
+        T = shape[0] * shape[1]
+        check = moe_logit_check("prefill kernel vs reference", logits, ref,
+                                [r["idx"] for r in routing],
+                                [r["idx"] for r in ref_routing], bounds)
+        moe = {"capacity": mlp.moe_capacity(cfg, T), "moe_layers": len(routing),
+               "pairs": T * cfg.top_k * len(routing),
+               "dropped_pairs": sum(int(r["dropped"]) for r in routing),
+               "reference_dropped_pairs": sum(int(r["dropped"]) for r in ref_routing)}
+    else:
+        check = logit_check("prefill kernel vs reference", logits, ref, bounds)
     emit("prefill", arch=cfg.name, batch=list(shape),
          inputs={k: [list(v.shape), str(v.dtype)] for k, v in batch.items()},
          layers=cfg.n_layers, params=sum(t.numel() for t in _leaves(params)),
-         launches=launches, seconds=dt, tokens_per_s=shape[0] * shape[1] / dt, **check)
+         launches=launches, seconds=dt, tokens_per_s=shape[0] * shape[1] / dt,
+         **moe, **check)
     return launches
+
+
+def topk_flips(a, b):
+    """The tokens whose top-k expert sets differ between two routings."""
+    return (a.sort(-1).values != b.sort(-1).values).any(-1).sum()
+
+
+def moe_plain(cfg, p, x):
+    """The capacity dispatch written as a plain loop over experts, in f32:
+    the router as ``moe_fwd``'s, then for each expert the first C (token,
+    slot) pairs routed to it in (token, slot) order, each through the
+    expert's SwiGLU; a token's output is the weighted sum of its kept
+    pairs' outputs.  Returns (y (B, S, D) in x's dtype, pairs dropped)."""
+    B, S, D = x.shape
+    T, E, K = B * S, cfg.experts, cfg.top_k
+    C = mlp.moe_capacity(cfg, T)
+    xf = x.reshape(T, D)
+    logits = xf.float() @ p["router"]["w"]
+    if cfg.n_experts_padded > cfg.n_experts:
+        logits[:, cfg.n_experts:] = -1e30
+    w, idx = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True)
+    w, idx = w[:, :K], idx[:, :K]
+    w = (w / w.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype).float()
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    dropped = 0
+    for e in range(E):
+        tok, slot = (idx == e).nonzero(as_tuple=True)  # in (token, slot) order
+        dropped += max(0, len(tok) - C)
+        tok, slot = tok[:C], slot[:C]
+        h = xf[tok].float()
+        g = F.silu(h @ p["wg"][e].float()) * (h @ p["wu"][e].float())
+        y.index_add_(0, tok, (g @ p["wo"][e].float()) * w[tok, slot, None])
+    return y.to(x.dtype).reshape(B, S, D), dropped
+
+
+def phase_moe_dispatch(cfg, params, gen, shape) -> dict:
+    """The capacity dispatch (``mlp.moe_fwd``) of the first MoE layer on the
+    card, at the prefill's token count, against ``moe_plain``: N(0, 1)
+    inputs in the model's dtype, the layer's own weights."""
+    j = next(j for j in range(cfg.block_period) if cfg.is_moe_layer(j))
+    p = {k: v[0] if torch.is_tensor(v) else {"w": v["w"][0]}
+         for k, v in params["blocks"][j]["moe"].items() if k != "shared"}
+    x = randn(gen, (*shape, cfg.d_model), params["embed"]["w"].dtype)
+    with mlp.record_routing() as routing:
+        out = mlp.moe_fwd(cfg, ParallelCtx.single(), p, x)
+    ref, dropped = moe_plain(cfg, p, x)
+    torch.cuda.synchronize()
+    row = {"arch": cfg.name, "tokens": shape[0] * shape[1], "experts": cfg.experts,
+           "top_k": cfg.top_k, "capacity": mlp.moe_capacity(cfg, shape[0] * shape[1]),
+           "dropped_pairs": int(routing[0]["dropped"]), "plain_dropped_pairs": dropped,
+           "tol": MOE_DISPATCH_TOL,
+           "rel_rms_err": ((out.float() - ref.float()).norm() / ref.float().norm()).item()}
+    row["max_abs_err"] = close(out, ref, MOE_DISPATCH_TOL)
+    row["call_ms"] = call_ms(lambda a: mlp.moe_fwd(cfg, ParallelCtx.single(), p, a), (x,),
+                             iters=4)
+    emit("moe dispatch", **row)
+    if row["dropped_pairs"] != dropped:
+        raise AssertionError(f"the dispatch dropped {row['dropped_pairs']} pairs, the "
+                             f"plain loop {dropped}")
+    return row
 
 
 def phase_serve(cfg, model, params, *, check_len: int = 0,
@@ -692,7 +875,10 @@ def phase_serve(cfg, model, params, *, check_len: int = 0,
     """The engine answers four requests.  Then the engine path
     (``decode_step`` token by token) is held to the kernel prefill: at the
     last position of the first prompt, or, with ``check_len``, at every
-    position of a sequence of that many tokens."""
+    position of a sequence of that many tokens.  Not for a MoE config: its
+    capacity counts the tokens routed together, so a prefill may drop pairs
+    that one-token decode steps keep (the decode step is held to the JAX
+    reference's on the CPU, tests/test_torch_moe.py)."""
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab, size=rng.integers(3, 9)).tolist()
                for _ in range(4)]
@@ -709,6 +895,12 @@ def phase_serve(cfg, model, params, *, check_len: int = 0,
     vocab_ok = all(0 <= t < cfg.vocab_p for i in ids for t in results[i])
     if not vocab_ok:
         raise AssertionError(f"token out of vocabulary: {results}")
+    total = sum(len(v) for v in results.values())
+    if cfg.n_experts:
+        emit("serve", arch=cfg.name, requests=len(ids), prompt_lens=[len(p) for p in prompts],
+             max_new=8, slots=2, generated=total, seconds=dt, tokens_per_s=total / dt,
+             launches=engine_launches, decode_capacity=mlp.moe_capacity(cfg, 2))
+        return
     seq = (rng.integers(1, cfg.vocab, size=check_len).tolist() if check_len
            else prompts[0])
     reset_counts()
@@ -729,7 +921,6 @@ def phase_serve(cfg, model, params, *, check_len: int = 0,
         check = logit_check("prefill vs decode_step", pre[-1], steps[-1], bounds)
     check.update(tokens=len(seq), positions=len(seq) if check_len else 1,
                  launches=counts())
-    total = sum(len(v) for v in results.values())
     emit("serve", arch=cfg.name, requests=len(ids), prompt_lens=[len(p) for p in prompts],
          max_new=8, slots=2, generated=total, seconds=dt, tokens_per_s=total / dt,
          launches=engine_launches, prefill_vs_decode=check)
@@ -763,8 +954,8 @@ def phase_verify(card: str) -> None:
          host_cpu=cpu, card=card)
     plans = {"tp-forward": {}, "tp-decode": {"mode": "decode"}, "sp-forward": {"sp": True}}
     for (arch, kind, size), jax_memo_hits in VERIFY_PLANS.items():
-        plan = (Plan(dp=size) if kind == "dp-forward"
-                else Plan(tp=size, **plans[kind]))
+        plan = (Plan(dp=size) if kind == "dp-forward" else Plan(ep=size)
+                if kind == "ep-moe-forward" else Plan(tp=size, **plans[kind]))
         with Session() as session:
             rep = session.verify(arch, plan)
         emit("verify", arch=arch, scenario=kind, size=size, verified=rep.verified,
@@ -866,37 +1057,49 @@ def tp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict
     shards = [torch.empty_like(out["logits"]) for _ in range(world)] if rank == 0 else None
     dist.gather(out["logits"], shards, dst=0)
     logits = torch.cat(shards, dim=-1) if rank == 0 else None
-    return {"ms": out["ms"], "launches": launches, "logits": logits}
+    return {"ms": out["ms"], "launches": launches, "logits": logits,
+            "dropped": out["dropped"], "topk": out["topk"]}
 
 
-def phase_tp_forward(gen) -> list:
+def phase_tp_forward(gen, arch: str = "llama3_8b", layers: int = TP_LAYERS,
+                     bounds=TP_LOGIT_BOUNDS) -> list:
     """The per-rank TP program the verifier proves, on four gloo ranks that
     share the card (NCCL refuses two ranks on one device; gloo stages the
-    all_reduces through the host), llama3_8b at full width with TP_LAYERS
+    all_reduces through the host), ``arch`` at full width with ``layers``
     layers, bf16, through the kernels.  Each rank draws the single-device
-    weights from one seed and keeps its shard (``param_specs``)."""
-    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=TP_LAYERS)
+    weights from one seed and keeps its shard (``param_specs``): a MoE
+    config's experts split over the ranks, each running the capacity
+    dispatch for its own (``first = rank * E_loc``), with capacity from the
+    global token count; the pairs each rank's experts dropped are printed
+    beside the single device's."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
     tokens = torch.randint(0, cfg.vocab, TP_TOKENS, generator=gen, device="cuda").cpu()
     torch.cuda.synchronize()
-    with torch.inference_mode():
+    with torch.inference_mode(), mlp.record_routing() as routing:
         model = Model(cfg, device="cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(seed))
         ref = model.forward(params, {"tokens": tokens.cuda()}).float()
+        dropped = sum(int(r["dropped"]) for r in routing)
         del params
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = spmd.run(tp_rank, TP_SIZE, (cfg, seed, tokens), timeout=600)
     seconds = time.perf_counter() - t0
     launches = [r["launches"] for r in ranks]
-    check = logit_check("tp_forward TP-4 vs single device", ranks[0]["logits"].cuda(), ref,
-                        TP_LOGIT_BOUNDS)
-    want = {"flash_attention": TP_LAYERS, "rmsnorm": 0, "ssd_scan": 0}
-    emit("tp_forward", arch=cfg.name, tp=TP_SIZE, layers=TP_LAYERS, tokens=list(TP_TOKENS),
+    name = f"tp_forward {arch} TP-4 vs single device"
+    check = (moe_logit_check(name, ranks[0]["logits"].cuda(), ref, ranks[0]["topk"],
+                             [r["idx"] for r in routing], bounds) if cfg.n_experts
+             else logit_check(name, ranks[0]["logits"].cuda(), ref, bounds))
+    moe = ({"experts_per_rank": cfg.experts // TP_SIZE,
+            "dropped_pairs_per_rank": [r["dropped"] for r in ranks],
+            "single_device_dropped_pairs": dropped} if cfg.n_experts else {})
+    want = {"flash_attention": layers, "rmsnorm": 0, "ssd_scan": 0}
+    emit("tp_forward", arch=cfg.name, tp=TP_SIZE, layers=layers, tokens=list(TP_TOKENS),
          dtype=cfg.dtype, backend="gloo", flash_shape_per_rank=[
              TP_TOKENS[0], cfg.heads // TP_SIZE, cfg.kv_heads // TP_SIZE, TP_TOKENS[1],
              TP_TOKENS[1], cfg.hd], launches_per_rank=launches,
-         forward_ms_per_rank=[r["ms"] for r in ranks], seconds=seconds, **check)
+         forward_ms_per_rank=[r["ms"] for r in ranks], seconds=seconds, **moe, **check)
     if any(n != want for n in launches):
         raise AssertionError(f"each rank's forward launched {launches}, expected {want}")
     return launches
@@ -1016,6 +1219,15 @@ def phase_serve_encoder() -> None:
         raise AssertionError(f"hubert_xlarge: the launcher exited {code}: {out}")
 
 
+def emit_memory(arch: str, held: int, params) -> None:
+    """The device memory of one model's init and prefill: what was held
+    before the init, the parameters, and the peak since the last
+    ``reset_peak_memory_stats`` (taken just before the init)."""
+    emit("device memory", arch=arch, held_before_init_gib=held / 2**30,
+         params_gib=nbytes(*_leaves(params)) / 2**30,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1082,27 +1294,49 @@ def main() -> int:
                 LOGIT_REL_RMS, LOGIT_MAX_ABS)
             frontend_launches[arch] = phase_prefill(cfg, model, params, gen, (2, 1024),
                                                     bounds)
-            emit("device memory", arch=arch, held_before_init_gib=held / 2**30,
-                 params_gib=nbytes(*_leaves(params)) / 2**30,
-                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            emit_memory(arch, held, params)
             if cfg.encoder_only:
                 phase_serve_encoder()
             else:
                 phase_serve(cfg, model, params, bounds=bounds)
             del model, params
             torch.cuda.empty_cache()
+        # the MoE archs: granite_moe_3b at full width and depth (prefill,
+        # its dispatch against the plain loop, serve), mixtral_8x7b cut to
+        # MIXTRAL_LAYERS layers (prefill and dispatch)
+        moe_launches = {}
+        for arch, layers in (("granite_moe_3b", None), ("mixtral_8x7b", MIXTRAL_LAYERS)):
+            cfg = get_config(arch)
+            cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            model = Model(cfg, device="cuda")
+            params = model.init(gen)
+            moe_launches[arch] = phase_prefill(cfg, model, params, gen, (2, 1024),
+                                               MOE_BOUNDS[arch])
+            emit_memory(cfg.name, held, params)
+            phase_moe_dispatch(cfg, params, gen, (2, 1024))
+            if layers is None:
+                phase_serve(cfg, model, params)
+            del model, params
+            torch.cuda.empty_cache()
     phase_verify(card)
     phase_campaign()
     dp_launches = phase_dp_forward(gen)
     tp_launches = phase_tp_forward(gen)
+    moe_tp_launches = phase_tp_forward(gen, "granite_moe_3b", MOE_TP_LAYERS,
+                                       MOE_BOUNDS["tp"])
     decode_launches = phase_tp_decode(gen)
     phase_serve_verified()
     paths = {"qwen3_4b prefill": launches,
              **{f"{arch} prefill": n for arch, n in dense_launches.items()},
              "mamba2_130m prefill": ssm_launches,
              **{f"{arch} prefill": n for arch, n in frontend_launches.items()},
+             "granite_moe_3b prefill": moe_launches["granite_moe_3b"],
+             f"mixtral_8x7b prefill ({MIXTRAL_LAYERS} layers)": moe_launches["mixtral_8x7b"],
              "dp_forward, each rank": dp_launches,
              "tp_forward, each rank": tp_launches,
+             "tp_forward granite_moe_3b, each rank": moe_tp_launches,
              "tp_decode, each rank": decode_launches}
     kernels = [
         {"name": "flash_attention", "route": "cuda",

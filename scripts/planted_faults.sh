@@ -48,6 +48,16 @@
 # does not run on the card):
 #   sp_frontend_prev_chunk  each rank takes rank r - 1's chunk of the
 #                         replicated frames or prefix (models/model.py)
+# Faults in the MoE layers (models/mlp.py):
+#   moe_shared_psum_dropped  the shared expert's partial sum is not reduced
+#                         in the TP verification formulation (moe_dense_fwd):
+#                         the reference's own bug; the verify phase must find
+#                         moonshot_v1_16b's tp-forward unverified at mlp.py
+#   moe_dispatch_pos_off_by_one  the capacity dispatch counts positions from
+#                         1 (pos without - 1), so each full expert drops one
+#                         pair too many; the moe dispatch phase (granite's
+#                         dispatch against the plain per-expert loop) must
+#                         fail
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
@@ -55,7 +65,7 @@ shift $(( $# > 0 ? 1 : 0 ))
 faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box fa_d80_box_extent \
 ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped \
 tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped \
-sp_frontend_prev_chunk}
+sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
@@ -123,6 +133,18 @@ for name in $faults; do
       file=models/model.py phase=verify alone=
       old='x = dynamic_slice_in_dim(x, ctx.tp_index() * chunk, chunk, axis=1)'
       new='x = dynamic_slice_in_dim(x, (ctx.tp_index() - 1) * chunk, chunk, axis=1)' ;;
+    moe_shared_psum_dropped)
+      file=models/mlp.py phase=verify alone=
+      old='y = ctx.psum_tp(y).reshape(B, S, D)
+    if "shared" in p:
+        y = y + ctx.psum_tp(_shared_fwd(cfg, p["shared"], x))'
+      new='y = ctx.psum_tp(y).reshape(B, S, D)
+    if "shared" in p:
+        y = y + _shared_fwd(cfg, p["shared"], x)' ;;
+    moe_dispatch_pos_off_by_one)
+      file=models/mlp.py phase="moe dispatch" alone=
+      old='pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot).sum(0) - 1'
+      new='pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot).sum(0)' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name

@@ -13,7 +13,8 @@ so the same rules verify both:
   ``index`` -> ``gather``, ...);
 * composite ops are decomposed the way ``jax.numpy`` lowers them
   (``mean`` -> ``reduce_sum`` + ``div``, ``silu`` -> ``logistic`` + ``mul``,
-  ``clamp`` -> ``max`` + ``min``, ``_softmax``, ``addmm``, ``triu``/``tril``,
+  ``clamp`` -> ``max`` + ``min``, ``_softmax`` (its max floored at -inf
+  and a ``stop_gradient`` ``copy``), ``addmm``, ``triu``/``tril``,
   ``softplus``, tanh-approximate ``gelu``, ``constant_pad_nd``), with jnp's
   explicit rank-promoting broadcasts and ``where`` as ``select(pred,
   on_false, on_true)``; ATen's spellings of one jnp op are folded back
@@ -29,6 +30,11 @@ so the same rules verify both:
   ``repro_torch::dynamic_slice`` (``modules.dynamic_slice_in_dim``, a slice
   at a tensor start such as ``rank * chunk``) becomes
   ``lax.dynamic_slice_in_dim``'s start wrap and ``dynamic_slice``;
+* the MoE router's ops trace as their jnp forms: ``repro_torch::top_k``
+  (``mlp.top_k``) as ``lax.top_k``'s two ``top_k`` nodes, ``repeat`` of a
+  unit dim as ``jnp.repeat``, and ``index_put`` with ``accumulate`` as
+  ``.at[i, j].add`` (index wraps, unit dims, ``concat``, one
+  ``scatter_add``);
 * every node carries ``src`` (``file.py:line`` of the innermost frame
   outside torch and this module, captured by a ``TorchFunctionMode`` while
   tracing), its ``named_scope`` path (:mod:`repro_torch.scope`) and the
@@ -692,6 +698,20 @@ class Tracer:
                              {"dimension_numbers": ((lc, rc), (lb, rb))})
         if packet is getattr(torch.ops.repro_torch, "dynamic_slice", None):
             return self._dynamic_slice(args, shape, dtype)
+        if packet is getattr(torch.ops.repro_torch, "top_k", None):
+            # lax.top_k: one node for each output, the values and the indices
+            x, k = args
+            params = {"axis": len(self.g[x].shape) - 1, "k": k}
+            return [self.emit("top_k", [x], tuple(v.shape), v.dtype, params)
+                    for v in val]
+        if packet is _A.repeat:
+            out = self._repeat(args[0], tuple(args[1]), shape, dtype)
+            if out is not None:
+                return out
+        if packet is _A.index_put and len(args) > 3 and args[3]:
+            out = self._scatter_add(args, shape, dtype)
+            if out is not None:
+                return out
         if packet is _A.mm:
             return self.emit("dot", args[:2], shape, dtype,
                              {"dimension_numbers": (((1,), (0,)), ((), ()))})
@@ -723,7 +743,15 @@ class Tracer:
             return self.emit("div", [s, self.scalar(count, dtype)], shape, dtype)
         if packet is _A._softmax:  # jax.nn.softmax's lowering
             x, dim = args[0], args[1] % len(shape)
-            m = self.reduce("reduce_max", x, [dim], True, dtype)
+            m = self.reduce("reduce_max", x, [dim], False, dtype)
+            # the max floored at -inf, kept dims back, and stop_gradient
+            m = self.emit("max", [self.scalar(-math.inf, dtype), m], self.g[m].shape,
+                          dtype)
+            kept = tuple(s if i != dim else 1 for i, s in enumerate(shape))
+            m = self.emit("broadcast", [m], kept, dtype,
+                          {"shape": kept, "broadcast_dimensions":
+                           tuple(i for i in range(len(shape)) if i != dim)})
+            m = self.emit("copy", [m], kept, dtype)
             e = self.emit("exp", [self.emit("sub", [x, m], shape, dtype)], shape, dtype)
             s = self.reduce("reduce_sum", e, [dim], True, dtype)
             return self.emit("div", [e, s], shape, dtype)
@@ -786,6 +814,56 @@ class Tracer:
         starts[axis] = self.emit("select", [lt, start, wrapped], (), idt)
         return self.emit("dynamic_slice", [x] + starts, shape, dtype,
                          {"slice_sizes": tuple(shape)})
+
+    def _repeat(self, x, reps, shape, dtype):
+        """``jnp.repeat(x, r, axis=d)`` for a unit dim ``d`` (where torch's
+        tiling ``repeat`` is the same): one ``broadcast_in_dim`` to a new
+        dim of ``r`` after ``d``, then a ``reshape``; None for any other
+        repeat."""
+        n = self.g[x]
+        grown = [d for d, r in enumerate(reps) if r != 1]
+        if len(reps) != len(n.shape) or len(grown) != 1 or n.shape[grown[0]] != 1:
+            return None
+        d = grown[0]
+        wide = n.shape[:d + 1] + (reps[d],) + n.shape[d + 1:]
+        b = self.emit("broadcast", [x], wide, dtype,
+                      {"shape": wide, "broadcast_dimensions":
+                       tuple(i for i in range(len(wide)) if i != d + 1)})
+        return self.reshape(b, shape)
+
+    def _scatter_add(self, args, shape, dtype):
+        """``x.at[i0, i1, ...].add(u)`` for 1-D indices into every leading
+        dim and a 1-D ``u`` (``index_put`` with ``accumulate``), as jnp
+        traces it: each index wrapped once (``select(i < 0, i, i + n)``)
+        and given a trailing unit dim, the columns concatenated, one
+        ``scatter_add`` of one element per row; None for other forms."""
+        x, indices, upd = args[0], args[1], args[2]
+        n = self.g[x]
+        if (len(indices) != len(n.shape) or any(i is None for i in indices)
+                or len({self.g[i].shape for i in indices}) != 1
+                or len(self.g[indices[0]].shape) != 1
+                or self.g[upd].shape != self.g[indices[0]].shape):
+            return None
+        rows = self.g[indices[0]].shape[0]
+        wrapped = []
+        for size, i in zip(n.shape, indices):
+            idt = _DTYPES_BY_NAME[self.g[i].dtype]
+            neg = self.emit("lt", [i, self.scalar(0, idt)], (rows,), torch.bool)
+            plus = self.emit("add", [i, self.scalar(size, idt)], (rows,), idt)
+            wrapped.append(self.emit("select", [neg, i, plus], (rows,), idt))
+        cols = [self.emit("broadcast", [i], (rows, 1), self.g[i].dtype,
+                          {"shape": (rows, 1), "broadcast_dimensions": (0,)})
+                for i in wrapped]
+        idx = cols[0] if len(cols) == 1 else self.emit(
+            "concat", cols, (rows, len(cols)), self.g[cols[0]].dtype, {"dimension": 1})
+        dims = tuple(range(len(n.shape)))
+        dn = (f"ScatterDimensionNumbers(update_window_dims=(), inserted_window_dims={dims}, "
+              f"scatter_dims_to_operand_dims={dims}, operand_batching_dims=(), "
+              f"scatter_indices_batching_dims=())")
+        return self.emit("scatter_add", [x, idx, self.convert(upd, dtype)], shape, dtype,
+                         {"dimension_numbers": dn, "indices_are_sorted": False,
+                          "slice_sizes": (), "unique_indices": False,
+                          "update_consts": ()})
 
     def _softplus(self, x, shape, dtype):
         """``jax.nn.softplus``: ``logaddexp(x, 0)``, whose jnp lowering is

@@ -1,6 +1,5 @@
-"""Model: config-driven decoder/encoder stacks (dense, SSM and hybrid
-families, and the audio-frame and vision-patch frontends; experts are not
-ported yet).
+"""Model: config-driven decoder/encoder stacks (dense, SSM, hybrid and MoE
+families, and the audio-frame and vision-patch frontends).
 
 Layers are stored **stacked by block position**, as in the JAX package:
 ``params["blocks"][j]`` holds the parameters of layers ``j, j+P, j+2P, ...``
@@ -14,6 +13,11 @@ and the SSD scan through its kernel, the counterpart of the JAX
 ``impl="pallas"``; ``impl="reference"`` keeps ``chunked_attention`` and
 ``ssd_chunked``.  Decode bypasses both kernels (``chunked_attention`` and
 the O(1) ``ssm_decode`` recurrence).
+
+MoE layers run ``MOE_IMPLS[moe_impl]``: the capacity dispatch
+(``"capacity"``, the default, what prefill, decode and TP execution run) or
+one of the verifier's static formulations (``"dense"`` for TP, ``"ep"`` for
+expert parallelism), as in the JAX package.
 
 The frontends are stubs, as in the JAX package: the model's inputs are
 precomputed frame embeddings (``frames``, the whole sequence) or patch
@@ -33,11 +37,15 @@ from repro_torch.scope import named_scope
 from repro_torch.tree import tree_map
 
 from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache, write_index
-from .mlp import mlp_fwd, mlp_init
+from .mlp import mlp_fwd, mlp_init, moe_dense_fwd, moe_ep_fwd, moe_fwd, moe_init
 from .modules import _init, dynamic_slice_in_dim, linear, linear_init, rmsnorm, rmsnorm_init
 from .ssm import ssm_decode, ssm_fwd, ssm_init, ssm_init_cache
 
 IMPLS = ("kernel", "reference")
+# moe_impl -> forward implementation: "capacity" is the execution dispatch,
+# "dense" the TP verification formulation, "ep" the expert-parallel
+# verification formulation (unrolled expert slice/add loop)
+MOE_IMPLS = {"capacity": moe_fwd, "dense": moe_dense_fwd, "ep": moe_ep_fwd}
 
 
 def resolve_device(device) -> torch.device:
@@ -55,15 +63,16 @@ def _tree_index(tree, i: int):
 
 class Model:
     def __init__(self, cfg: ArchConfig, ctx: ParallelCtx = ParallelCtx.single(),
-                 impl: str = "kernel", device="cuda"):
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: configs with experts are not ported yet")
+                 impl: str = "kernel", moe_impl: str = "capacity", device="cuda"):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {tuple(MOE_IMPLS)}, "
+                             f"got {moe_impl!r}")
         self.cfg = cfg
         self.ctx = ctx
         self.impl = impl
+        self.moe_impl = moe_impl
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -93,7 +102,10 @@ class Model:
                 blk["attn"] = attn_init(generator, cfg, stacked=(nb,), dtype=dt)
             else:
                 blk["ssm"] = ssm_init(generator, cfg, stacked=(nb,), dtype=dt)
-            if cfg.d_ff > 0:
+            if cfg.is_moe_layer(j):
+                blk["ln2"] = rmsnorm_init(generator, cfg.d_model, dt, (nb,))
+                blk["moe"] = moe_init(generator, cfg, stacked=(nb,), dtype=dt)
+            elif cfg.d_ff > 0:
                 blk["ln2"] = rmsnorm_init(generator, cfg.d_model, dt, (nb,))
                 blk["mlp"] = mlp_init(generator, cfg, cfg.d_ff, stacked=(nb,), dtype=dt)
             blocks.append(blk)
@@ -170,7 +182,10 @@ class Model:
         if "ln2" in lparams:
             h = ctx.sp_exit(x)
             hn = rmsnorm(lparams["ln2"], h, cfg.norm_eps)
-            x = x + mlp_fwd(cfg, ctx, lparams["mlp"], hn)
+            if cfg.is_moe_layer(j):
+                x = x + MOE_IMPLS[self.moe_impl](cfg, ctx, lparams["moe"], hn)
+            else:
+                x = x + mlp_fwd(cfg, ctx, lparams["mlp"], hn)
         return x
 
     def forward(self, params, batch, *, unroll: bool = False):
@@ -258,5 +273,8 @@ class Model:
         x = x + mix
         if "ln2" in lp:
             hn = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + mlp_fwd(cfg, ctx, lp["mlp"], hn, decode=True)
+            if cfg.is_moe_layer(j):
+                x = x + MOE_IMPLS[self.moe_impl](cfg, ctx, lp["moe"], hn)
+            else:
+                x = x + mlp_fwd(cfg, ctx, lp["mlp"], hn, decode=True)
         return x

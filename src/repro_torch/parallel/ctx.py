@@ -120,6 +120,22 @@ class ParallelCtx:
                              "(ParallelCtx.with_rank)")
         return self.rank
 
+    # -- expert-parallel -------------------------------------------------------
+    def psum_ep(self, x):
+        """Discharge the experts' partial sum over the expert axis."""
+        return self._all_reduce(x, "sum") if self.ep_axis else x
+
+    def ep_index(self):
+        """This rank's index along the expert axis (0 without one): the
+        rank tensor, which is the tensor-parallel rank where experts share
+        the model axis."""
+        if not self.ep_axis:
+            return 0
+        if self.rank is None:
+            raise ValueError("an expert-parallel ParallelCtx needs its rank tensor "
+                             "(ParallelCtx.with_rank)")
+        return self.rank
+
     # -- sequence-parallel region helpers ------------------------------------
     def sp_enter(self, x, seq_axis: int = 1):
         """Row-parallel output -> the next region's input.  SP on: a

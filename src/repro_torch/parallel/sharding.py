@@ -14,6 +14,8 @@ Megatron-style TP over axis "model" (the JAX package's table, dim for dim):
   wo (Hhd,D)         -> row-parallel        P('model', None)
   mlp wg/wu (D,F)    -> column-parallel     P(None, 'model')
   mlp wo (F,D)       -> row-parallel        P('model', None)
+  moe router w (D,E) -> replicated          P(None, None)
+  moe wg/wu/wo       -> expert-parallel     P('model', None, None)   [over E]
   ssm wx/wz/wdt      -> head-column         P(None, 'model')
   norms, B/C         -> replicated
 (stacked block params carry a leading None for the n_blocks dim.)  The
@@ -85,6 +87,12 @@ def _spec_for(path: tuple, ndim: int, tp: str) -> PartitionSpec:
         return mk(None, tp) if leaf == "w" else mk(tp)
     if parent == "wo" and gparent in ("mlp", "shared"):
         return mk(tp, None) if leaf == "w" else mk(None)
+    # --- moe -----------------------------------------------------------------
+    if parent == "router":
+        return mk(None, None)
+    if parent == "moe":
+        if leaf in ("wg", "wu", "wo"):
+            return mk(tp, None, None)  # expert-parallel over E
     # --- ssm -------------------------------------------------------------------
     if parent in ("wx", "wz", "wdt") and gparent == "ssm":
         return mk(None, tp) if leaf == "w" else mk(tp)

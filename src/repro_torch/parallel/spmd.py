@@ -16,9 +16,11 @@ program computes.  On the CPU gloo runs over CPU tensors.
 config: each rank draws the single-device parameter set from one seed,
 keeps its shard (``param_specs``), and runs the forward pass with the
 collectives of ``ParallelCtx.tensor_parallel`` (sequence-parallel with
-``sp``).  :func:`tp_decode` is its serving counterpart: the decode step the
-verifier's ``tp-decode`` scenario proves, fed one position at a time
-against this rank's shard of the caches (``cache_specs``).
+``sp``; a MoE config's experts are split over the ranks, each running the
+capacity dispatch for its own).  :func:`tp_decode` is its serving
+counterpart: the decode step the verifier's ``tp-decode`` scenario proves,
+fed one position at a time against this rank's shard of the caches
+(``cache_specs``).
 :func:`dp_forward` is the per-rank program of the verifier's ``dp-forward``
 scenario: every rank holds the whole single-device parameter set and runs
 the forward pass on its rows of the batch.
@@ -127,13 +129,17 @@ def tp_forward(rank: int, world: int, cfg, seed: int, inputs, impl: str = "kerne
     ``device`` says otherwise; sequence-parallel with ``sp``) over
     ``inputs``: tokens (B, S), or a batch dict (a frontend's frames, or
     patches beside tokens), which every rank holds whole.  Returns this
-    rank's vocab shard of the logits (on the CPU) and the forward time in
-    ms."""
+    rank's vocab shard of the logits (on the CPU), the forward time in ms,
+    ``dropped``, the (token, slot) pairs of this rank's experts that
+    capacity dropped, summed over the MoE layers (0 without experts), and
+    ``topk``, each MoE layer's top-k expert ids (T, K) (on the CPU)."""
+    from repro_torch.models.mlp import record_routing
+
     model, params = _rank_model(rank, world, cfg, seed, impl, device, sp)
     dev = model.device
     batch = tree_map(lambda t: t.to(dev),
                      inputs if isinstance(inputs, dict) else {"tokens": inputs})
-    with torch.inference_mode():
+    with torch.inference_mode(), record_routing() as routing:
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -141,7 +147,9 @@ def tp_forward(rank: int, world: int, cfg, seed: int, inputs, impl: str = "kerne
         if dev.type == "cuda":
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-    return {"logits": logits.cpu(), "ms": ms}
+    return {"logits": logits.cpu(), "ms": ms,
+            "dropped": sum(int(r["dropped"]) for r in routing),
+            "topk": [r["idx"].cpu() for r in routing]}
 
 
 def tp_decode(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,

@@ -4,6 +4,7 @@ graphs traced from the torch models).
     python -m repro_torch.verify <arch> --tp 4 [--decode | --sp] [--layers N]
                                  [--json out.json|-] [--cache-dir DIR]
     python -m repro_torch.verify <arch> --dp 2
+    python -m repro_torch.verify <moe arch> --ep 4
     python -m repro_torch.verify --list
     python -m repro_torch.verify --list-injectors
     python -m repro_torch.verify campaign --arch llama3_8b --tp 4 [--seeds N]
@@ -13,10 +14,10 @@ The ``campaign`` verb runs the detection-benchmark matrix
 applicable scenario x every ``--arch``, plus ``--seeds`` fuzzer seeds;
 exit 1 on any missed detection or clean-cell false positive.
 
-The ``tp-forward``, ``tp-decode`` (``--decode``), ``sp-forward`` (``--sp``)
-and ``dp-forward`` (``--dp``) scenarios are ported: a plan that needs
-another (``--grad``, ``--pipeline``, ``--ep``, ``--composite``)
-exits 2 with the registry's list of what is available.  The lint tier
+The ``tp-forward``, ``tp-decode`` (``--decode``), ``sp-forward`` (``--sp``),
+``dp-forward`` (``--dp``) and ``ep-moe-forward`` (``--ep``) scenarios are
+ported: a plan that needs another (``--grad``, ``--pipeline``,
+``--composite``) exits 2 with the registry's list of what is available.  The lint tier
 (``--lint``, the ``lint`` and ``rulecheck`` verbs) is not ported yet and
 exits 2 as well.
 

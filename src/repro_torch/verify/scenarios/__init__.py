@@ -12,10 +12,12 @@ Registered kinds (see ``python -m repro_torch.verify --list``):
 ``dp-forward``     batch-sharded forward (cross-batch interaction)
 ``sp-forward``     sequence-parallel forward (reduce_scatter/all_gather
                    around the norm regions vs the psum baseline)
+``ep-moe-forward`` expert-parallel MoE forward (unrolled expert slice/add
+                   loop + all_reduce vs the dense expert sum)
 
-The JAX package's other kinds (dp-grad, stage, ep-moe-forward,
-tpdp-forward) are not ported yet: asking for one gives the registry's
-``PlanError``, which lists what is registered.
+The JAX package's other kinds (dp-grad, stage, tpdp-forward) are not
+ported yet: asking for one gives the registry's ``PlanError``, which lists
+what is registered.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from .harness import BuildCtx, GraphPair, round_layers
 from .registry import DEFAULT_SCENARIOS, ScenarioRegistry, ScenarioSpec
 
 # importing the scenario modules populates DEFAULT_SCENARIOS
-from . import dp, sp, tp  # noqa: E402,F401
+from . import dp, ep, sp, tp  # noqa: E402,F401
 
 
 def build_pair(arch: str, plan: Plan, scen: Scenario, stamp: bool = True,

@@ -1,7 +1,7 @@
 """Shared scenario-building plumbing: the trace/stamp/spec wiring every
 scenario builder uses exactly once instead of hand-rolling it.
 
-The :class:`GraphPair` result type, the verification param-spec table, shape
+The :class:`GraphPair` result type, the verification param-spec tables, shape
 helpers, the stamping pipeline, and :class:`BuildCtx`, the handle the
 :class:`~repro_torch.verify.session.Session` threads through ``build_pair``
 so scenarios of one plan share the *base* (single-device) trace when their
@@ -28,8 +28,8 @@ from repro_torch.core.trace import (LAYER_TAG_STRIDE, ShapeDtype, trace,
                                     trace_sharded)
 from repro_torch.models import Model
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.parallel.sharding import is_spec
-from repro_torch.tree import tree_leaves
+from repro_torch.parallel.sharding import P, is_spec, param_specs
+from repro_torch.tree import tree_leaves, tree_map_with_path
 
 
 @dataclass
@@ -96,6 +96,39 @@ def _shape_sig(shapes) -> tuple:
     return tuple((tuple(a.shape), str(a.dtype)) for a in tree_leaves(shapes))
 
 
+# ------------------------------------------------------------- param specs
+def _expert_stack(path) -> bool:
+    names = [str(p) for p in path]
+    return len(names) >= 2 and names[-2] == "moe" and names[-1] in ("wg", "wu", "wo")
+
+
+def verify_pspecs(param_shapes):
+    """Param specs for the TP verification formulation: like execution
+    specs, but MoE experts use FFN-width TP instead of expert parallelism."""
+
+    def fix(path, spec):
+        if not _expert_stack(path):
+            return spec
+        if str(path[-1]) == "wo":
+            return P(None, None, "model", None)  # (nb, E, F, D): shard F
+        return P(None, None, None, "model")  # (nb, E, D, F): shard F
+
+    return tree_map_with_path(fix, param_specs(param_shapes), is_leaf=is_spec)
+
+
+def ep_pspecs(param_shapes, axis: str):
+    """Param specs for the EP verification formulation: MoE expert weights
+    sharded over the *expert* dim (the execution sharding), everything else
+    replicated: the scenario verifies the expert axis in isolation."""
+
+    def fix(path, leaf):
+        if _expert_stack(path):
+            return P(None, axis, None, None)  # (nb, E, D|F, F|D): shard E
+        return P(*([None] * len(leaf.shape)))
+
+    return tree_map_with_path(fix, param_shapes)
+
+
 # ------------------------------------------------------------ shape helpers
 def round_layers(cfg, n_layers: Optional[int], stages: int = 1):
     """Round a layer-count override up to whole block periods (hybrids
@@ -123,13 +156,16 @@ def batch_avals(cfg, batch: int, seq: int):
     return {"tokens": ShapeDtype((batch, seq), torch.int64)}, seq
 
 
-def model_pair(cfg, ctx: ParallelCtx):
+def model_pair(cfg, ctx: ParallelCtx, moe_impl: str = "dense"):
     """The (baseline, distributed) Model pair + shared parameter shapes.
     Both run the reference path on the CPU: traces see ``chunked_attention``,
-    as the JAX traces see the jnp path.  The distributed model's context is
-    a template: each trace gets it with its own traced rank."""
-    model_s = Model(cfg, ParallelCtx.single(), impl="reference", device="cpu")
-    model_d = Model(cfg, ctx, impl="reference", device="cpu")
+    as the JAX traces see the jnp path, and a static MoE formulation
+    (``moe_impl``; the capacity dispatch is data-dependent and never
+    traced).  The distributed model's context is a template: each trace
+    gets it with its own traced rank."""
+    model_s = Model(cfg, ParallelCtx.single(), impl="reference", moe_impl=moe_impl,
+                    device="cpu")
+    model_d = Model(cfg, ctx, impl="reference", moe_impl=moe_impl, device="cpu")
     return model_s, model_d, model_s.param_shapes()
 
 
@@ -185,7 +221,7 @@ def flat_spec_leaves(specs) -> list:
 
 
 __all__ = [
-    "BuildCtx", "GraphPair", "batch_avals", "cache_shapes", "flat_spec_leaves",
-    "model_pair",
-    "round_layers", "stamped_or_full", "stamped_parts",
+    "BuildCtx", "GraphPair", "batch_avals", "cache_shapes", "ep_pspecs",
+    "flat_spec_leaves", "model_pair", "round_layers", "stamped_or_full",
+    "stamped_parts", "verify_pspecs",
 ]

@@ -4,9 +4,11 @@ against head-sharded KV/SSM caches — the paper's own inference-graph
 setting).
 
 Layers run under ``layer<i>`` scopes (per-layer memoization) and deep models
-are layer-stamped.  The decode step is the one the serving engine runs: it
-writes its caches in place and is traced functionalized, so the written
-caches are outputs of the trace.
+are layer-stamped.  MoE layers trace the dense-masked formulation
+(``moe_dense_fwd``) with the expert stacks sharded over their FFN width
+(``verify_pspecs``), as in the JAX package.  The decode step is the one
+the serving engine runs: it writes its caches in place and is traced
+functionalized, so the written caches are outputs of the trace.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from repro_torch.core.trace import ShapeDtype
 from repro_torch.core.verifier import OutputSpec
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.parallel.sharding import P, cache_specs, param_specs
+from repro_torch.parallel.sharding import P, cache_specs
 from repro_torch.tree import tree_map
 
 from ..plan import TP_AXIS, PlanError
@@ -30,6 +32,7 @@ from .harness import (
     flat_spec_leaves,
     model_pair,
     stamped_or_full,
+    verify_pspecs,
 )
 from .registry import DEFAULT_SCENARIOS as S
 
@@ -46,7 +49,7 @@ def _tp_forward_parts(arch: str, cfg, tp: int, batch: int, seq: int,
     """Trace the (baseline, per-rank) TP forward pair for ``cfg``."""
     pctx = ParallelCtx.tensor_parallel(tp, axis=TP_AXIS, sp=sp)
     model_s, model_d, param_shapes = model_pair(cfg, pctx)
-    pspecs = param_specs(param_shapes)
+    pspecs = verify_pspecs(param_shapes)
     b, seq = batch_avals(cfg, batch, seq)
     bspecs = tree_map(lambda _: P(), b)
 
@@ -89,7 +92,7 @@ def _tp_decode_parts(arch: str, cfg, tp: int, batch: int, max_len: int,
     """Trace the (baseline, per-rank) decode-step pair for ``cfg``."""
     pctx = ParallelCtx.tensor_parallel(tp, axis=TP_AXIS)
     model_s, model_d, param_shapes = model_pair(cfg, pctx)
-    pspecs = param_specs(param_shapes)
+    pspecs = verify_pspecs(param_shapes)
     caches = cache_shapes(model_s, batch, max_len)
     cspecs = cache_specs(caches)
     tok = ShapeDtype((batch,), torch.int64)

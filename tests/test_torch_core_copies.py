@@ -22,7 +22,9 @@ COPIES = [
     "verify/scenarios/sp.py",
     *(f"configs/{a}.py" for a in (
         "llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b", "gemma_2b",
-        "llama3_70b", "llama3_405b", "hubert_xlarge", "internvl2_26b")),
+        "llama3_70b", "llama3_405b", "hubert_xlarge", "internvl2_26b",
+        "granite_moe_3b", "moonshot_v1_16b", "mixtral_8x7b", "mixtral_8x22b",
+        "jamba_1_5_large")),
 ]
 
 # rewritten for torch, not copies
@@ -38,6 +40,7 @@ KNOWN_EXCEPTIONS = {
     "verify/cli.py": "the lint tier and unported scenarios exit 2",
     "verify/scenarios/__init__.py": "registers the ported scenarios only",
     "verify/scenarios/dp.py": "dp-grad needs the backward trace; torch pytrees",
+    "verify/scenarios/ep.py": "the rank is a traced input; no AbstractMesh",
     "verify/campaign.py": "unported scenarios are reported, the lint tier is off",
 }
 

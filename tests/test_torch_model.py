@@ -383,17 +383,17 @@ def test_input_specs_and_skips_match_jax():
 
 def test_unported_families_and_missing_gpu_raise():
     cfg = get_config("qwen3_4b", smoke=True)
-    # experts (dense MoE, and a jamba-like hybrid with experts); the
-    # frontends construct
+    # every family is ported: experts (dense MoE, and a jamba-like hybrid
+    # with experts) and the frontends construct
     for change in ({"ssm_state": 16, "attn_period": 4, "n_experts": 4, "top_k": 2},
-                   {"n_experts": 4, "top_k": 2}):
-        with pytest.raises(NotImplementedError):
-            Model(dataclasses.replace(cfg, **change), device="cpu")
-    Model(dataclasses.replace(cfg, frontend="audio_frames"), device="cpu")
+                   {"n_experts": 4, "top_k": 2}, {"frontend": "audio_frames"}):
+        Model(dataclasses.replace(cfg, **change), device="cpu")
     with pytest.raises(ValueError):
         Model(cfg, impl="pallas", device="cpu")
+    with pytest.raises(ValueError):
+        Model(cfg, moe_impl="sorted", device="cpu")
     with pytest.raises(ModuleNotFoundError):
-        get_config("mixtral_8x7b")
+        get_config("no_such_arch")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Model(cfg)

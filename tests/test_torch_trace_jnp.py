@@ -270,3 +270,66 @@ def test_dynamic_slice_matches_lax(start):
     got = dynamic_slice_in_dim(torch.from_numpy(x), torch.tensor(start), 4, axis=1)
     want = lax.dynamic_slice_in_dim(jnp.asarray(x), jnp.int32(start), 4, axis=1)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- the MoE router's ops ------------------------------------------------------
+
+
+def test_top_k_is_one_node_each_output():
+    """``mlp.top_k`` (a stable descending sort, ties to the lower index)
+    traces as ``lax.top_k``: one ``top_k`` node for the values and one for
+    the indices, each with the axis and ``k``."""
+    from repro_torch.models.mlp import top_k
+
+    g, jg = _pair(lambda x: top_k(x, 2), lambda x: lax.top_k(x, 2), ((6, 5), F32))
+    assert _body(g) == _body(jg) == ["top_k", "top_k"]
+    assert [n.shape for n in g if n.op == "top_k"] == [(6, 2), (6, 2)]
+    assert [(n.param("axis"), n.param("k")) for n in g if n.op == "top_k"] == \
+        [(n.param("axis"), n.param("k")) for n in jg if n.op == "top_k"] == [(1, 2)] * 2
+    assert [n.dtype for n in g if n.op == "top_k"] == ["float32", "int64"]
+
+
+def test_softmax_is_jax_softmax():
+    """``torch.softmax`` traces as ``jax.nn.softmax``: the row max floored
+    at -inf, kept dims back, ``stop_gradient`` (a ``copy``), then exp, sum
+    and div."""
+    g, jg = _pair(lambda x: torch.softmax(x, dim=-1), lambda x: jax.nn.softmax(x, axis=-1),
+                  ((3, 4), F32))
+    assert _body(g) == _body(jg) == ["reduce_max", "max", "broadcast", "copy", "sub",
+                                     "exp", "reduce_sum", "broadcast", "div"]
+    assert [[g[i].op for i in n.inputs] for n in g] == [[jg[i].op for i in n.inputs]
+                                                         for n in jg]
+
+
+def test_router_scatter_add_is_jnp_at_add():
+    """The dense router mask, ``zeros.index_put((tok, idx), w,
+    accumulate=True)`` with ``tok = arange(T)[:, None].repeat(1, K)``,
+    traces as ``zeros.at[tok, idx].add(w)`` with ``jnp.repeat``: each index
+    wrapped once, given a unit dim and concatenated, one ``scatter_add``."""
+    T, E, K = 6, 5, 2
+
+    def tfn(w, idx):
+        tok = torch.arange(T)[:, None].repeat(1, K)
+        z = torch.zeros((T, E), dtype=torch.float32)
+        return z.index_put((tok.reshape(-1), idx.reshape(-1)), w.reshape(-1),
+                           accumulate=True)
+
+    def jfn(w, idx):
+        tok = jnp.arange(T)[:, None].repeat(K, 1)
+        z = jnp.zeros((T, E), jnp.float32)
+        return z.at[tok.reshape(-1), idx.reshape(-1)].add(w.reshape(-1))
+
+    g, _, _ = trace(tfn, ShapeDtype((T, K), torch.float32), ShapeDtype((T, K), torch.int64))
+    jg, _, _ = jtrace(jfn, jax.ShapeDtypeStruct((T, K), jnp.float32),
+                      jax.ShapeDtypeStruct((T, K), jnp.int32))
+    assert _body(g) == _body(jg)
+    assert [[g[i].op for i in n.inputs] for n in g] == [[jg[i].op for i in n.inputs]
+                                                         for n in jg]
+    sa, jsa = (next(n for n in h if n.op == "scatter_add") for h in (g, jg))
+    for key in ("dimension_numbers", "indices_are_sorted", "unique_indices"):
+        assert sa.param(key) == jsa.param(key)
+    assert _param(g, "broadcast", "broadcast_dimensions") == \
+        [_freeze(v) for v in _param(jg, "broadcast", "broadcast_dimensions")]
+    # the wraps add each index's own dim: T for the tokens, E for the experts
+    adds = [n for n in g if n.op == "add"]
+    assert [g[n.inputs[1]].param("value") for n in adds] == [T, E]

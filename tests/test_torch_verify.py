@@ -153,7 +153,7 @@ def test_cli_exit_codes_match_jax(argv, code, jax_code, capsys):
 
 
 def test_cli_unported_and_lint_exit_2(capsys):
-    assert cli.main(["mixtral_8x7b", "--tp", "4"]) == 2
+    assert cli.main(["llama3_8b", "--pipeline", "2"]) == 2
     assert cli.main(["llama3_8b", "--tp", "4", "--lint"]) == 2
     assert cli.main(["lint", "--arch", "llama3_8b"]) == 2
     err = capsys.readouterr().err
