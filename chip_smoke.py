@@ -27,7 +27,10 @@ through the capacity dispatch, with the pairs capacity dropped and the
 tokens whose top-k sets differ between the kernel and reference paths;
 the dispatch against a plain per-expert loop; serve) and mixtral_8x7b cut
 to 8 of its 32 layers (8 experts of width 14336, top 2; prefill and the
-dispatch check).  Every prefill's inputs are named
+dispatch check), and moonshot_v1_16b whole (48 layers, 64 experts and a
+shared expert, 53.8 GiB of bf16 weights whose expert stacks are drawn a
+block at a time; prefill, with the peak device memory over init and
+prefill).  Every prefill's inputs are named
 and typed as ``input_specs`` gives them.  Then the verifier's main path:
 verify (the port's ``Session`` proves, at full width and depth, tp-forward
 and tp-decode at tp 4 for llama3_8b, qwen3_4b, mamba2_130m, qwen1_5_4b,
@@ -37,8 +40,10 @@ hubert_xlarge and at tp 16 for llama3_70b and llama3_405b, dp-forward
 at dp 2 for gemma_2b and llama3_8b, and the MoE plans: granite_moe_3b's
 tp-forward, ep-moe-forward, tp-decode and sp-forward at 4, moonshot_v1_16b's
 and mixtral_8x7b's tp-forward and ep-moe-forward at 4, mixtral_8x7b and
-mixtral_8x22b at tp 16, jamba_1_5_large's tp-forward at 4; host seconds and
-memo hits beside the JAX reference's), campaign (every registered injector
+mixtral_8x22b at tp 16, jamba_1_5_large's tp-forward at 4, and four plans
+of several scenarios: llama3_8b in 4 pipeline stages of TP 4 and TP 4 x DP
+2 composite, llama3_405b in 2 stages of TP 16, granite_moe_3b in 2 stages
+of TP 4; host seconds and memo hits beside the JAX reference's), campaign (every registered injector
 on llama3_8b's tp4 tp-forward, tp-decode and sp-forward pairs, mamba2_130m's
 tp-forward pair, gemma_2b's tp-forward and dp-forward pairs, hubert_xlarge's
 tp-forward pair, internvl2_26b's sp-forward pair, and granite_moe_3b's and
@@ -55,9 +60,15 @@ logits gathered on rank 0 and held to the single-device model; the pairs
 each rank's experts dropped beside the single device's), tp_decode (the
 proved per-rank decode step on the same four ranks: a 32-token prompt fed
 one position at a time, then 8 more steps; every step's logits and the
-final KV cache shards held to the single-device ``decode_step``) and
-serve_verified (the serving launcher's ``--verify-tp`` pre-flight, then
-serving on the card).  Then a ``kernels`` line and, last, ``{"ok": true,
+final KV cache shards held to the single-device ``decode_step``),
+tpdp_forward (the verifier's tp x dp program on the same four ranks as a
+(data, model) = (2, 2) mesh, llama3_8b with two layers; each rank's rows
+and vocab columns of the logits held to the single device's),
+pipeline_forward (llama3_8b with four layers in 2 stages of TP 2 on the
+four ranks, 4 microbatches streamed through ``pipeline_forward``, the
+ring's activations copied through the host; every rank's logits held to
+the single device's) and serve_verified (the serving launcher's
+``--verify-tp`` pre-flight, then serving on the card).  Then a ``kernels`` line and, last, ``{"ok": true,
 "device": {...}}``.  Any failure raises, so the exit code is not 0; without
 a CUDA device the script exits 1 before any phase.
 """
@@ -153,6 +164,19 @@ SSM_LOGIT_BOUNDS = (0.1, 1.5)
 # leave about 3x headroom.
 TP_LOGIT_BOUNDS = (3e-2, 0.2)
 TP_SIZE, TP_LAYERS, TP_TOKENS = 4, 2, (1, 1024)
+# The tp x dp program (the verifier's tpdp-forward): llama3_8b, TP_LAYERS
+# layers, TPDP_TP x (4 / TPDP_TP) on four gloo ranks, tokens TPDP_TOKENS
+# split by rows over the data axis; each rank's (rows, vocab shard) block
+# of the logits held to the single device's at TP_LOGIT_BOUNDS (the model
+# axis changes the order of the row-parallel sums, the data axis only how
+# many rows each product takes).
+TPDP_TP, TPDP_TOKENS = 2, (2, 1024)
+# The pipeline x TP program: llama3_8b, PIPE_LAYERS layers in PIPE_STAGES
+# stages of TP (4 / PIPE_STAGES) on four gloo ranks, PIPE_MICRO microbatches
+# of one sequence of PIPE_SEQ tokens; every rank's vocab shard of the
+# logits held to the single device's at TP_LOGIT_BOUNDS (the ring moves
+# activations unchanged; TP changes the order of the row-parallel sums).
+PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO, PIPE_SEQ = 2, 4, 4, 1024
 # The JAX reference's outcome of every cell of ``python -m repro.verify
 # campaign --arch <arch> --tp 4 --scenarios <scenario>`` (written here as
 # data: this script imports nothing of the JAX package), by (arch,
@@ -236,6 +260,19 @@ VERIFY_PLANS = {
     ("mixtral_8x7b", "tp-forward", 16): 30, ("mixtral_8x22b", "tp-forward", 16): 54,
     ("jamba_1_5_large", "tp-forward", TP_SIZE): 66,
 }
+# Plans of more than one scenario, by (arch, the CLI's flags): the Plan's
+# keywords and the memo hits of ``python -m repro.verify <arch> <flags>``
+# summed over the plan's scenarios, the JAX reference, on the CPU (written
+# here as data).  A pipeline plan verifies each stage (TP inside it); the
+# composite verifies tp-forward, then the tp x dp program against the TP
+# program (tpdp-forward).  llama3_405b in two stages is Table 2's L3 row
+# under a pipeline layout.
+VERIFY_MULTI = {
+    ("llama3_8b", "--pipeline 4 --tp 4"): (dict(mode="pipeline", stages=4, tp=4), 24),
+    ("llama3_8b", "--tp 4 --dp 2 --composite"): (dict(tp=4, dp=2, composite=True), 60),
+    ("llama3_405b", "--pipeline 2 --tp 16"): (dict(mode="pipeline", stages=2, tp=16), 122),
+    ("granite_moe_3b", "--pipeline 2 --tp 4"): (dict(mode="pipeline", stages=2, tp=4), 28),
+}
 # llama3_8b TP-4 serving step (TP_LAYERS layers, batch 2) against the
 # single-device decode_step: a TP_DECODE_PROMPT-token prompt fed one
 # position at a time, then TP_DECODE_STEPS more, into caches of
@@ -279,11 +316,16 @@ DP_LOGIT_BOUNDS = TP_LOGIT_BOUNDS
 # over the 172 of 2048 tokens routed alike in all 32 layers, 12.8% of
 # token-layers flipped; mixtral_8x7b (8 layers) 12.2% and 3.18, 3.66% and
 # 1.19, 4.1%; granite's TP-4 program (4 layers) 3.58% and 1.49, 1.79% and
-# 0.572, 10.0%.  Each limit is about 3x its reading.
+# 0.572, 10.0%.  moonshot_v1_16b (48 layers, 64 experts of width 1408, top
+# 6, a shared expert of width 2816; bf16 only: an f32 copy does not fit on
+# the card), the largest of three seeds' readings (seeds 0-2, PERF.md):
+# 9.88% and 2.61, 1.86% and 0.211 over the 7-12 tokens routed alike, 31.7%
+# of token-layers flipped.  Each limit is about 3x its reading.
 MOE_BOUNDS = {
     "granite_moe_3b": {"all": (9e-2, 1.1), "stable": (4.5e-2, 0.5), "flip_share": 0.4},
     "mixtral_8x7b": {"all": (0.37, 9.5), "stable": (0.11, 3.6), "flip_share": 0.13},
     "tp": {"all": (0.11, 4.5), "stable": (5.5e-2, 1.7), "flip_share": 0.3},
+    "moonshot_v1_16b": {"all": (0.3, 7.8), "stable": (5.6e-2, 0.65), "flip_share": 0.95},
 }
 MIXTRAL_LAYERS = 8
 # The capacity dispatch of one MoE layer against a plain per-expert loop
@@ -351,6 +393,11 @@ FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, and the name of a main
     # over 16): its prefill and a TP-4 rank's shape (the tp_forward phase)
     (2, 32, 16, 1024, 1024, 64, torch.bfloat16, True, "granite_moe_3b"),
     (1, 8, 4, 1024, 1024, 64, torch.bfloat16, True, "granite_moe_3b_tp4"),
+    # llama3_8b at TP 2 (32 q-heads over 8 KV heads padded to 16, half a
+    # rank): a rank of the tpdp_forward and pipeline_forward phases
+    (1, 16, 8, 1024, 1024, 128, torch.bfloat16, True, "tpdp_forward"),
+    # moonshot_v1_16b's prefill (MHA, 16 heads)
+    (2, 16, 16, 1024, 1024, 128, torch.bfloat16, True, "moonshot_v1_16b"),
 ]
 FA_CASES = [c if len(c) == 9 else (*c, None) for c in FA_CASES]
 RN_CASES = [  # rows, D, dtype; the first two are timed
@@ -971,6 +1018,22 @@ def phase_verify(card: str) -> None:
         if rep.memo.memo_hits != jax_memo_hits:
             failed.append(f"{arch} {kind} {size}: {rep.memo.memo_hits} memo hits, the "
                           f"reference takes {jax_memo_hits}")
+    for (arch, flags), (kw, jax_memo_hits) in VERIFY_MULTI.items():
+        with Session() as session:
+            rep = session.verify(arch, Plan(**kw))
+        emit("verify", arch=arch, plan=flags, verified=rep.verified,
+             scenarios=[{k: r[k] for k in ("scenario", "verified", "num_facts",
+                                           "num_dist_nodes", "elapsed_s", "stamped")}
+                        for r in rep.scenarios],
+             base_nodes=rep.num_base_nodes, dist_nodes=rep.num_dist_nodes,
+             facts=rep.num_facts, memo_hits=rep.cache.memo_hits,
+             jax_memo_hits=jax_memo_hits, trace_s=rep.timings.trace_s,
+             rules_s=rep.timings.rules_s, total_s=rep.elapsed_s, host_cpu=cpu, card=card,
+             bug_sites=[{"src": b.src, "category": b.category} for b in rep.bug_sites[:3]])
+        if not rep.verified or rep.cache.memo_hits != jax_memo_hits:
+            failed.append(f"{arch} {flags}: verified {rep.verified}, "
+                          f"{rep.cache.memo_hits} memo hits, the reference takes "
+                          f"{jax_memo_hits}")
     if failed:
         raise AssertionError(f"verify phase: {failed}")
 
@@ -997,6 +1060,18 @@ def phase_campaign() -> None:
         raise AssertionError(f"campaign cells differ from the reference: {failed}")
 
 
+def single_device_logits(cfg, seed: int, tokens: torch.Tensor) -> torch.Tensor:
+    """The single-device forward of ``tokens`` through the kernels, f32
+    logits on the card, the weights freed after it."""
+    with torch.inference_mode():
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        ref = model.forward(params, {"tokens": tokens.cuda()}).float()
+        del params
+        torch.cuda.empty_cache()
+    return ref
+
+
 def dp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
     """One rank of the dp_forward phase (runs in a spawned process): a
     warm-up forward, then one forward with the kernels' counts read around
@@ -1017,13 +1092,7 @@ def phase_dp_forward(gen) -> list:
     cfg = get_config("gemma_2b")
     seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
     tokens = torch.randint(0, cfg.vocab, DP_TOKENS, generator=gen, device="cuda").cpu()
-    torch.cuda.synchronize()
-    with torch.inference_mode():
-        model = Model(cfg, device="cuda")
-        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
-        ref = model.forward(params, {"tokens": tokens.cuda()})
-        del params
-        torch.cuda.empty_cache()
+    ref = single_device_logits(cfg, seed, tokens)
     t0 = time.perf_counter()
     ranks = spmd.run(dp_rank, DP_SIZE, (cfg, seed, tokens), timeout=600)
     seconds = time.perf_counter() - t0
@@ -1180,6 +1249,105 @@ def phase_tp_decode(gen) -> list:
     return launches
 
 
+def tpdp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
+    """One rank of the tpdp_forward phase (runs in a spawned process): a
+    warm-up forward, then one forward with the kernels' counts read around
+    it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spmd.tpdp_forward(rank, world, cfg, seed, tokens, TPDP_TP)
+    reset_counts()
+    out = spmd.tpdp_forward(rank, world, cfg, seed, tokens, TPDP_TP)
+    return {**out, "launches": counts()}
+
+
+def phase_tpdp_forward(gen) -> list:
+    """The verifier's tpdp-forward program on four gloo ranks that share the
+    card: a (data, model) = (4 / TPDP_TP, TPDP_TP) mesh, llama3_8b at full
+    width with TP_LAYERS layers, bf16, through the kernels; each rank draws
+    the single-device weights from one seed, keeps the shard of its model
+    coordinate and runs the forward on the rows of its data coordinate,
+    the model-axis all_reduces on its model group.  Each rank's logits are
+    held to its rows and vocab columns of the single-device forward."""
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=TP_LAYERS)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
+    tokens = torch.randint(0, cfg.vocab, TPDP_TOKENS, generator=gen, device="cuda").cpu()
+    ref = single_device_logits(cfg, seed, tokens)
+    world, dp = TP_SIZE, TP_SIZE // TPDP_TP
+    t0 = time.perf_counter()
+    ranks = spmd.run(tpdp_rank, world, (cfg, seed, tokens), timeout=600)
+    seconds = time.perf_counter() - t0
+    rows, v = TPDP_TOKENS[0] // dp, cfg.vocab_p // TPDP_TP
+    checks = [{"data": r["data"], "model": r["model"], **logit_check(
+        f"tpdp_forward rank {i} vs single device", r["logits"].cuda(),
+        ref[r["data"] * rows:(r["data"] + 1) * rows, :, r["model"] * v:(r["model"] + 1) * v],
+        TP_LOGIT_BOUNDS)} for i, r in enumerate(ranks)]
+    launches = [r["launches"] for r in ranks]
+    want = {"flash_attention": TP_LAYERS, "rmsnorm": 0, "ssd_scan": 0}
+    emit("tpdp_forward", arch=cfg.name, tp=TPDP_TP, dp=dp, layers=TP_LAYERS,
+         tokens=list(TPDP_TOKENS), dtype=cfg.dtype, backend="gloo",
+         flash_shape_per_rank=[rows, cfg.heads // TPDP_TP, cfg.kv_heads // TPDP_TP,
+                               TPDP_TOKENS[1], TPDP_TOKENS[1], cfg.hd],
+         launches_per_rank=launches, forward_ms_per_rank=[r["ms"] for r in ranks],
+         seconds=seconds, per_rank=checks)
+    if sorted((c["data"], c["model"]) for c in checks) != [
+            (d, m) for d in range(dp) for m in range(TPDP_TP)]:
+        raise AssertionError(f"the ranks' mesh coordinates: {checks}")
+    if any(n != want for n in launches):
+        raise AssertionError(f"each rank's forward launched {launches}, expected {want}")
+    return launches
+
+
+def pipe_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
+    """One rank of the pipeline_forward phase (runs in a spawned process): a
+    warm-up pass, then one pass with the kernels' counts read around it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spmd.pipeline_tp_forward(rank, world, cfg, seed, tokens, PIPE_STAGES, PIPE_MICRO)
+    reset_counts()
+    out = spmd.pipeline_tp_forward(rank, world, cfg, seed, tokens, PIPE_STAGES, PIPE_MICRO)
+    return {**out, "launches": counts()}
+
+
+def phase_pipeline_forward(gen) -> list:
+    """The pipeline x TP program on four gloo ranks that share the card: a
+    ("pod", "model") = (PIPE_STAGES, 4 / PIPE_STAGES) mesh, llama3_8b at full
+    width with PIPE_LAYERS layers, bf16, through the kernels.  Each rank
+    keeps its model shard of its stage's layers; every rank embeds the
+    PIPE_MICRO microbatches, runs them through ``pipeline_forward`` (each
+    stage the program the ``stage`` scenario proves, idle ticks on zeros
+    included, so each rank runs its stage's layers on every one of the
+    PIPE_MICRO + PIPE_STAGES - 1 ticks), then the final norm and the head.
+    Every rank's logits are held to its vocab columns of the single-device
+    forward."""
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=PIPE_LAYERS)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
+    tokens = torch.randint(0, cfg.vocab, (PIPE_MICRO, PIPE_SEQ), generator=gen,
+                           device="cuda").cpu()
+    ref = single_device_logits(cfg, seed, tokens)
+    tp = TP_SIZE // PIPE_STAGES
+    t0 = time.perf_counter()
+    ranks = spmd.run(pipe_rank, TP_SIZE, (cfg, seed, tokens), timeout=600)
+    seconds = time.perf_counter() - t0
+    v = cfg.vocab_p // tp
+    checks = [{"pod": r["pod"], "model": r["model"], **logit_check(
+        f"pipeline_forward rank {i} vs single device", r["logits"].cuda(),
+        ref[..., r["model"] * v:(r["model"] + 1) * v], TP_LOGIT_BOUNDS)}
+        for i, r in enumerate(ranks)]
+    launches = [r["launches"] for r in ranks]
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    want = {"flash_attention": PIPE_LAYERS // PIPE_STAGES * ticks, "rmsnorm": 0,
+            "ssd_scan": 0}
+    emit("pipeline_forward", arch=cfg.name, stages=PIPE_STAGES, tp=tp, layers=PIPE_LAYERS,
+         microbatches=PIPE_MICRO, ticks=ticks, tokens=[PIPE_MICRO, PIPE_SEQ],
+         dtype=cfg.dtype, backend="gloo", ring=sorted({r["ring"] for r in ranks}),
+         flash_shape_per_rank=[1, cfg.heads // tp, cfg.kv_heads // tp, PIPE_SEQ, PIPE_SEQ,
+                               cfg.hd],
+         launches_per_rank=launches, ms_per_rank=[r["ms"] for r in ranks],
+         seconds=seconds, per_rank=checks)
+    if any(n != want for n in launches):
+        raise AssertionError(f"each rank's pass launched {launches}, expected {want}")
+    return launches
+
+
 def phase_serve_verified() -> None:
     """The serving launcher with its decode-plan pre-flight on the card:
     ``--verify-tp 2`` for qwen3_4b proves the plan, then serves; ``--verify-tp
@@ -1320,6 +1488,18 @@ def main() -> int:
                 phase_serve(cfg, model, params)
             del model, params
             torch.cuda.empty_cache()
+        # moonshot_v1_16b at full width and depth: 53.8 GiB of bf16 weights,
+        # its expert stacks drawn a block at a time (models/modules.py)
+        cfg = get_config("moonshot_v1_16b")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        model = Model(cfg, device="cuda")
+        params = model.init(gen)
+        moe_launches[cfg.name] = phase_prefill(cfg, model, params, gen, (2, 1024),
+                                               MOE_BOUNDS[cfg.name])
+        emit_memory(cfg.name, held, params)
+        del model, params
+        torch.cuda.empty_cache()
     phase_verify(card)
     phase_campaign()
     dp_launches = phase_dp_forward(gen)
@@ -1327,6 +1507,8 @@ def main() -> int:
     moe_tp_launches = phase_tp_forward(gen, "granite_moe_3b", MOE_TP_LAYERS,
                                        MOE_BOUNDS["tp"])
     decode_launches = phase_tp_decode(gen)
+    tpdp_launches = phase_tpdp_forward(gen)
+    pipe_launches = phase_pipeline_forward(gen)
     phase_serve_verified()
     paths = {"qwen3_4b prefill": launches,
              **{f"{arch} prefill": n for arch, n in dense_launches.items()},
@@ -1334,10 +1516,13 @@ def main() -> int:
              **{f"{arch} prefill": n for arch, n in frontend_launches.items()},
              "granite_moe_3b prefill": moe_launches["granite_moe_3b"],
              f"mixtral_8x7b prefill ({MIXTRAL_LAYERS} layers)": moe_launches["mixtral_8x7b"],
+             "moonshot_v1_16b prefill": moe_launches["moonshot_v1_16b"],
              "dp_forward, each rank": dp_launches,
              "tp_forward, each rank": tp_launches,
              "tp_forward granite_moe_3b, each rank": moe_tp_launches,
-             "tp_decode, each rank": decode_launches}
+             "tp_decode, each rank": decode_launches,
+             "tpdp_forward, each rank": tpdp_launches,
+             "pipeline_forward, each rank": pipe_launches}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

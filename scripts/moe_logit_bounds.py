@@ -23,15 +23,19 @@ the single device's.
 
     python3 scripts/moe_logit_bounds.py [--arch granite_moe_3b] [--layers N] [--device cuda]
     python3 scripts/moe_logit_bounds.py --arch mixtral_8x7b --layers 8 --device cuda
+    python3 scripts/moe_logit_bounds.py --arch moonshot_v1_16b --device cuda --dtypes bfloat16
     python3 scripts/moe_logit_bounds.py --tp 4 --layers 4 [--device cuda]
     python3 scripts/moe_logit_bounds.py --smoke            # rehearsal, on the CPU
 
 granite_moe_3b at full width and depth holds 6.3 GiB of bf16 weights
 (twice that for the f32 control, and a transient f32 copy of one expert
 stack while they are drawn); mixtral_8x7b about 2.8 GiB a layer in bf16
-plus a 15 GiB f32 draw of one expert stack at 8 layers.  Run them on the
-card (``--device cuda``: plain paths on the card's matrix products; no
-kernel of this repo runs) or where the host has that to spare.
+plus a 14 GiB f32 draw of one expert stack at 8 layers; moonshot_v1_16b
+53.8 GiB in bf16 (its expert stacks drawn a block at a time), so no f32
+control fits on an 80 GB card beside it: run it with ``--dtypes
+bfloat16``.  Run them on the card (``--device cuda``: plain paths on the
+card's matrix products; no kernel of this repo runs) or where the host has
+that to spare.
 """
 from __future__ import annotations
 
@@ -115,7 +119,7 @@ def tp(cfg, dev, seed: int, shape, size: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=("granite_moe_3b", "mixtral_8x7b"),
+    ap.add_argument("--arch", choices=("granite_moe_3b", "mixtral_8x7b", "moonshot_v1_16b"),
                     default="granite_moe_3b")
     ap.add_argument("--layers", type=int, default=None, help="default: the full depth")
     ap.add_argument("--tp", type=int, default=0, help="compare TP on this many gloo ranks")

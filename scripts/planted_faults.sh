@@ -58,6 +58,16 @@
 #                         pair too many; the moe dispatch phase (granite's
 #                         dispatch against the plain per-expert loop) must
 #                         fail
+# Faults in the two-axis programs (parallel/):
+#   pipeline_ring_stalled  at tick 1 each stage keeps its own activation
+#                         (s -> s) instead of receiving stage s - 1's
+#                         (parallel/pipeline.py); the pipeline_forward phase
+#                         must fail
+#   tpdp_psum_on_data_group  a mesh context's model-axis psum runs on the
+#                         data axis' group (parallel/ctx.py); the verify
+#                         phase must find the composite's tpdp-forward row
+#                         unverified, and the tpdp_forward phase, run on its
+#                         own after chip_smoke.py, fails its logit check
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
@@ -65,7 +75,8 @@ shift $(( $# > 0 ? 1 : 0 ))
 faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box fa_d80_box_extent \
 ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped \
 tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped \
-sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one}
+sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one \
+pipeline_ring_stalled tpdp_psum_on_data_group}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
@@ -145,6 +156,18 @@ for name in $faults; do
       file=models/mlp.py phase="moe dispatch" alone=
       old='pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot).sum(0) - 1'
       new='pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot).sum(0)' ;;
+    pipeline_ring_stalled)
+      file=parallel/pipeline.py phase=pipeline_forward alone=
+      old='inflight = ring_shift(act, group, n_stages)'
+      new='inflight = act if t == 1 else ring_shift(act, group, n_stages)' ;;
+    tpdp_psum_on_data_group)
+      file=parallel/ctx.py phase=verify alone=tpdp_forward
+      old='return self._all_reduce(x, "sum") if self.tp_axis else x
+
+    def pmax_tp'
+      new='return self._all_reduce(x, "sum", self.axis_group(self.dp_axis[0]) if self.mesh_axes and self.dp_axis else None) if self.tp_axis else x
+
+    def pmax_tp' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name
@@ -169,7 +192,7 @@ PY
   echo "$name: chip_smoke.py exit $?"
   diff "$root/src/repro_torch/$file" "$cu" | grep '^>'
   grep -E "\"(kernel )?$phase\"" "$out/fault_$name.txt" | cut -c 1-600
-  grep -m 1 -E "AssertionError|Error:" "$out/fault_$name.txt" | cut -c 1-400
+  grep -a -o -m 1 -E "[A-Za-z]*Error: .{0,400}" "$out/fault_$name.txt"
   if [ -n "$alone" ]; then  # the TP phase that runs this program, on its own
     (cd "$dir" && timeout 600 python3 -c "
 import sys, torch, chip_smoke as cs
@@ -178,6 +201,6 @@ sys.exit(cs.phase_$alone(torch.Generator(device='cuda').manual_seed(cs.SEED)) is
 ") > "$out/fault_${name}_$alone.txt" 2>&1
     echo "$name: $alone phase alone exit $?"
     grep -E "\"$alone\"" "$out/fault_${name}_$alone.txt" | cut -c 1-600
-    grep -m 1 -E "AssertionError|Error:" "$out/fault_${name}_$alone.txt" | cut -c 1-400
+    grep -a -o -m 1 -E "[A-Za-z]*Error: .{0,400}" "$out/fault_${name}_$alone.txt"
   fi
 done

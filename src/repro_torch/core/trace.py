@@ -25,8 +25,9 @@ so the same rules verify both:
 * Python scalars become hash-consed ``const`` leaves; scalar int
   arithmetic on constants folds at trace time;
 * the functional collectives become ``all_reduce``/``all_gather``/
-  ``reduce_scatter`` nodes over the traced axis (``wait_tensor`` is
-  dropped), and the context's rank input is emitted as ``axis_index``;
+  ``reduce_scatter`` nodes over the axis of the group each runs on
+  (``wait_tensor`` is dropped), and each of the context's rank inputs is
+  emitted as ``axis_index`` over its axis;
   ``repro_torch::dynamic_slice`` (``modules.dynamic_slice_in_dim``, a slice
   at a tensor start such as ``rank * chunk``) becomes
   ``lax.dynamic_slice_in_dim``'s start wrap and ``dynamic_slice``;
@@ -40,9 +41,9 @@ so the same rules verify both:
   tracing), its ``named_scope`` path (:mod:`repro_torch.scope`) and the
   layer tag derived from it.
 
-:func:`trace_sharded` traces the per-rank program of a tensor-parallel
-function under a fake process group of the axis size: the counterpart of
-tracing the body of a ``shard_map``.  Any op outside the table is emitted
+:func:`trace_sharded` traces the per-rank program of a sharded function
+under a fake process group of the axis size, or of a mesh's size with one
+subgroup an axis: the counterpart of tracing the body of a ``shard_map``.  Any op outside the table is emitted
 as an opaque node named after it (sound: it verifies only against a
 congruent opaque node).
 """
@@ -328,10 +329,12 @@ def _contract_pair(lhs, ln: str, rhs, rn: str, contracted, result: str, dtype,
 
 
 @contextmanager
-def fake_process_group(size: int):
+def fake_process_group(size: int, mesh: Optional[dict] = None):
     """A default process group of ``size`` fake ranks (this process is rank
     0) for the duration of a trace; torn down on exit, so no default group
-    is left behind."""
+    is left behind.  With ``mesh`` (an ordered ``{axis: size}`` whose sizes
+    multiply to ``size``) it yields a ``DeviceMesh`` over those ranks, one
+    fake subgroup per axis; else None."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -340,7 +343,13 @@ def fake_process_group(size: int):
                            "per-rank program in a process without one")
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
     try:
-        yield
+        if mesh is None:
+            yield None
+        else:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            yield init_device_mesh("cpu", tuple(mesh.values()),
+                                   mesh_dim_names=tuple(mesh))
     finally:
         dist.destroy_process_group()
 
@@ -404,10 +413,11 @@ class Tracer:
     equal-payload consts into one e-class anyway)."""
 
     def __init__(self, layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
-                 axis: str = "model"):
+                 group_axes: Optional[dict] = None):
         self.g = Graph()
         self.layer_tag_fn = layer_tag_fn
-        self.axis = axis
+        # process-group name -> the mesh axis its collectives run over
+        self.group_axes = group_axes or {}
         self._scalar_val: dict[int, Any] = {}
         self._const_cache: dict[tuple, int] = {}
         self._ctx = ("", "", None)  # src, scope, layer of the node being lowered
@@ -908,7 +918,7 @@ class Tracer:
     def _collective(self, name, args, shape, dtype, meta):
         if name == "wait_tensor":
             return args[0]
-        params = {"axes": (self.axis,), "groups": "full"}
+        params = {"axes": (self.group_axes[args[-1]],), "groups": "full"}
         if name == "all_reduce":
             params["reduce_op"] = _REDUCE_OPS[args[1]]
             return self.emit("all_reduce", [args[0]], shape, dtype, params)
@@ -1012,23 +1022,26 @@ def _fake_inputs(mode, leaves) -> list:
         return [torch.empty(tuple(leaf.shape), dtype=leaf.dtype) for leaf in leaves]
 
 
-def _lower(gm, name: str, layer_tag_fn, axis: str, rank_slot: bool):
-    """The fx graph of ``gm`` as a :class:`Graph`; with ``rank_slot`` the first
-    placeholder is the rank, emitted as one ``axis_index`` for each op that
-    reads it, where that op is (as ``lax.axis_index`` appears at each place
-    the JAX code calls it: the vocab-parallel embedding's offset, a
-    frontend's SP slice)."""
-    t = Tracer(layer_tag_fn, axis)
+def _lower(gm, name: str, layer_tag_fn, group_axes: Optional[dict] = None,
+           rank_axes: tuple = ()):
+    """The fx graph of ``gm`` as a :class:`Graph`.  ``group_axes`` maps each
+    process-group name to its mesh axis; the first ``len(rank_axes)``
+    placeholders are the ranks along those axes, each emitted as one
+    ``axis_index`` over its axis for each op that reads it, where that op is
+    (as ``lax.axis_index`` appears at each place the JAX code calls it: the
+    vocab-parallel embedding's offset, a frontend's SP slice); a rank no op
+    reads leaves no node."""
+    t = Tracer(layer_tag_fn, group_axes)
     t.g.name = name
     env: dict = {}
     in_ids: list[int] = []
-    rank_node = None
+    rank_nodes: dict = {}
     outs: list[int] = []
     for node in gm.graph.nodes:
         if node.op == "placeholder":
             v = node.meta["val"]
-            if rank_slot and rank_node is None:
-                rank_node = node
+            if len(rank_nodes) < len(rank_axes):
+                rank_nodes[node] = rank_axes[len(rank_nodes)]
                 continue
             nid = t.g.add("input", (), tuple(v.shape), dtype_name(v.dtype),
                           {"arg": len(in_ids)})
@@ -1040,11 +1053,12 @@ def _lower(gm, name: str, layer_tag_fn, axis: str, rank_slot: bool):
                 torch.float32 if tensor.dtype == torch.bfloat16 else tensor.dtype
             ).numpy(), dtype_name(tensor.dtype))
         elif node.op == "call_function":
-            if rank_node is not None and rank_node in node.args:
-                t._ctx = t._node_ctx(node)
-                env[rank_node] = t.emit("axis_index", [], (),
-                                        dtype_name(rank_node.meta["val"].dtype),
-                                        {"axes": (axis,), "groups": "full"})
+            for rank_node, axis in rank_nodes.items():
+                if rank_node in node.args:
+                    t._ctx = t._node_ctx(node)
+                    env[rank_node] = t.emit("axis_index", [], (),
+                                            dtype_name(rank_node.meta["val"].dtype),
+                                            {"axes": (axis,), "groups": "full"})
             env[node] = t.lower(node, env)
         elif node.op == "output":
             torch.fx.node.map_arg(node.args[0], lambda a: outs.append(env[a]))
@@ -1278,59 +1292,81 @@ def trace(
         return tree_leaves(fn(*tree_unflatten(treedef, flat)))
 
     gm = _make_fx(flat_fn, fakes)
-    return _lower(gm, name, layer_tag_fn, "model", rank_slot=False)
+    return _lower(gm, name, layer_tag_fn)
 
 
-def local_shape(shape, spec, size: int, axis: str) -> tuple:
-    """The per-rank shape of a leaf whose dims ``spec`` shards over ``axis``."""
+def local_shape(shape, spec, size, axis: str = "model") -> tuple:
+    """The per-rank shape of a leaf whose dims ``spec`` shards: over
+    ``axis`` of ``size`` ranks, or, with ``size`` a dict ``{axis: size}``,
+    over every axis of a mesh (an entry may name several)."""
+    sizes = size if isinstance(size, dict) else {axis: size}
     out = list(shape)
     for d, entry in enumerate(tuple(spec or ())):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        if axis in names:
-            if out[d] % size:
-                raise ValueError(f"dim {d} of {tuple(shape)} is not divisible by "
-                                 f"{axis}={size}")
-            out[d] //= size
+        for a in entry if isinstance(entry, tuple) else (entry,):
+            if a in sizes:
+                if out[d] % sizes[a]:
+                    raise ValueError(f"dim {d} of {tuple(shape)} is not divisible by "
+                                     f"{a}={sizes[a]}")
+                out[d] //= sizes[a]
     return tuple(out)
 
 
 def trace_sharded(
     fn: Callable,
-    size: int,
+    size,
     in_specs,
     *args,
     axis: str = "model",
     layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
     name: str = "dist",
 ) -> tuple[Graph, list[int], list[int]]:
-    """Trace the **per-rank** program of a tensor-parallel function, with
-    its collectives explicit.
+    """Trace the **per-rank** program of a sharded function, with its
+    collectives explicit.
 
-    ``fn(ctx, *args)`` receives a ``ParallelCtx`` over ``axis`` whose rank is
-    a traced 0-d int64 input (emitted as ``axis_index``).  ``args`` are
-    *global* shapes; ``in_specs`` holds one spec tree per argument, and each
-    input node carries the per-rank shape its spec gives.  The trace runs
-    under a fake process group of ``size`` ranks; in-place writes as in
-    :func:`trace`.
+    One axis: ``size`` ranks over ``axis``, and ``fn(ctx, *args)`` receives
+    ``ParallelCtx.tensor_parallel`` over it, whose collectives run on the
+    default group.  A mesh: ``size`` is an ordered ``{axis: size}`` (the
+    JAX package's ``abstract_mesh(sizes, names)``), the fake process group
+    holds their product with one subgroup per axis, and ``fn`` receives
+    ``ParallelCtx.from_mesh`` over it (model axis ``"model"``, data axis
+    ``"data"``).  Each rank is a traced 0-d int64 input, emitted as
+    ``axis_index`` over its axis; each collective carries the axis of the
+    group it runs on.  ``args`` are *global* shapes; ``in_specs`` holds one
+    spec tree per argument, and each input node carries the per-rank shape
+    its spec gives over every axis.  In-place writes as in :func:`trace`.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.parallel.ctx import ParallelCtx
     from repro_torch.parallel.sharding import is_spec
 
+    mesh = size if isinstance(size, dict) else None
+    sizes = mesh or {axis: size}
     leaves, treedef = _leaf_shapes(args)
     specs = tree_leaves(tuple(in_specs), is_leaf=is_spec)
     if len(specs) != len(leaves):
         raise ValueError(f"{len(specs)} input specs for {len(leaves)} input leaves")
-    local = [ShapeDtype(local_shape(leaf.shape, s, size, axis), leaf.dtype)
+    local = [ShapeDtype(local_shape(leaf.shape, s, sizes), leaf.dtype)
              for leaf, s in zip(leaves, specs)]
     mode = FakeTensorMode()
-    fakes = _fake_inputs(mode, [ShapeDtype((), torch.int64)] + local)
+    rank_axes = tuple(sizes)
+    fakes = _fake_inputs(mode, [ShapeDtype((), torch.int64)] * len(rank_axes) + local)
 
-    def flat_fn(rank, *flat):
-        ctx = ParallelCtx.tensor_parallel(size, rank=rank, axis=axis)
-        return tree_leaves(fn(ctx, *tree_unflatten(treedef, flat)))
+    with fake_process_group(math.prod(sizes.values()), mesh) as dmesh:
+        if dmesh is None:
+            import torch.distributed as dist
 
-    with fake_process_group(size):
+            group_axes = {dist.distributed_c10d._get_default_group().group_name: axis}
+        else:
+            group_axes = {dmesh.get_group(a).group_name: a for a in rank_axes}
+
+        def flat_fn(*flat):
+            ranks, flat = flat[:len(rank_axes)], flat[len(rank_axes):]
+            if dmesh is None:
+                ctx = ParallelCtx.tensor_parallel(size, rank=ranks[0], axis=axis)
+            else:
+                ctx = ParallelCtx.from_mesh(dmesh, ranks=dict(zip(rank_axes, ranks)))
+            return tree_leaves(fn(ctx, *tree_unflatten(treedef, flat)))
+
         gm = _make_fx(flat_fn, fakes)
-    return _lower(gm, name, layer_tag_fn, axis, rank_slot=True)
+    return _lower(gm, name, layer_tag_fn, group_axes, rank_axes)

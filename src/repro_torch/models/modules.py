@@ -62,14 +62,43 @@ def dynamic_slice_in_dim(x, start, size: int, axis: int):
     return _dynamic_slice(x, start, axis % x.ndim, size)
 
 
-def _init(generator: torch.Generator, shape, scale: Optional[float] = None,
-          dtype=torch.bfloat16):
-    """N(0, scale^2) values drawn in f32, scaled in place (one f32 copy
-    of the leaf at a time) and rounded to ``dtype``."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0] if shape else 1)
+# A leaf whose f32 draw would pass this many bytes is drawn a block at a
+# time along its leading (stacked) dim.  Block-wise Philox draws do not equal
+# one whole draw, so the threshold sits above every leaf drawn whole today,
+# whose values it keeps bit for bit: the largest is internvl2_26b's MLP
+# stack, (48, 6144, 16384), 18 GiB in f32 (mixtral_8x7b's expert stack cut
+# to 8 layers is 14 GiB).  moonshot_v1_16b's (48, 64, 2048, 1408) expert
+# stacks (33 GiB in f32) pass it: drawn whole, one would not fit on an 80 GB
+# card beside the bf16 weights already drawn.  (The largest stacks of
+# llama3_70b, llama3_405b, mixtral_8x7b, mixtral_8x22b and jamba_1_5_large
+# at full depth pass it too; their bf16 weights do not fit on the card.)
+BLOCK_DRAW_BYTES = 24 * 2**30
+
+
+def _draw(generator: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return x.mul_(scale).to(dtype)
+
+
+def drawn_in_blocks(shape) -> bool:
+    """Whether ``_init`` draws a leaf of ``shape`` a block at a time."""
+    return len(shape) > 1 and math.prod(shape) * 4 > BLOCK_DRAW_BYTES
+
+
+def _init(generator: torch.Generator, shape, scale: Optional[float] = None,
+          dtype=torch.bfloat16):
+    """N(0, scale^2) values drawn in f32, scaled in place (one f32 copy
+    of the leaf at a time) and rounded to ``dtype``; past
+    ``BLOCK_DRAW_BYTES``, one slice of the leading dim at a time, each
+    drawn, scaled and rounded before the next is drawn."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0] if shape else 1)
+    if not drawn_in_blocks(shape):
+        return _draw(generator, shape, scale, dtype)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    for i in range(shape[0]):
+        out[i] = _draw(generator, shape[1:], scale, dtype)
+    return out
 
 
 def linear_init(generator, d_in: int, d_out: int, *, bias: bool = False,

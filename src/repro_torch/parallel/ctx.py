@@ -13,13 +13,20 @@ The rank is a 0-d int64 tensor that the context holds (``rank``), never
 where the verifier needs the rank as a symbolic ``axis_index`` node.
 Sequence parallelism (``sp``) replaces the psum after each row-parallel
 region by a reduce_scatter along the sequence and gathers the sequence back
-before each column-parallel region.  The data-parallel axis runs alone: its
-psum and pmean are functional all_reduces over the default group; set
-beside the tensor-parallel axis (tp x dp) it raises
-``NotImplementedError``, as the context-parallel axis does.
+before each column-parallel region.
+
+One axis alone (``tensor_parallel``, or the data axis set by itself) runs
+its collectives on the default group, which holds every rank.  Over a
+``DeviceMesh`` (``from_mesh``) the context keeps one process-group name and
+one rank tensor per mesh axis: the model-axis collectives (``psum_tp``,
+``gather_tp``, ``scatter_tp``, ``pmax_tp``, ``psum_ep``) run on the model
+axis' group and ``psum_dp``/``pmean_dp`` on each data axis' group, so tp x
+dp runs as the JAX package's 2-D shard_map does.  The context-parallel axis
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -49,10 +56,52 @@ class ParallelCtx:
     # this rank's index along tp_axis, a 0-d int64 tensor; under the
     # verifier's tracer it is a traced input, emitted as ``axis_index``
     rank: Optional[torch.Tensor] = field(default=None, compare=False, repr=False)
+    # over a mesh (``from_mesh``): every axis name in mesh order, with its
+    # process-group name and this rank's index along it (0-d int64 tensors);
+    # empty for one axis alone, whose collectives use the default group
+    mesh_axes: tuple = ()
+    groups: tuple = field(default=(), compare=False, repr=False)
+    axis_ranks: tuple = field(default=(), compare=False, repr=False)
 
     @staticmethod
     def single() -> "ParallelCtx":
         return ParallelCtx()
+
+    @staticmethod
+    def from_mesh(mesh, tp: str = "model", dp="data", sp: bool = False,
+                  cp: Optional[str] = None, ranks: Optional[dict] = None) -> "ParallelCtx":
+        """The context of one rank of ``mesh`` (a ``DeviceMesh`` with
+        ``mesh_dim_names``): ``tp`` names the model axis (experts share it),
+        ``dp`` the data axis or a tuple of them; axes the mesh lacks are
+        dropped, as in the JAX package.  ``ranks`` maps an axis to its rank
+        tensor (the tracer's traced inputs); by default each is this
+        process' coordinate along the axis, on the mesh's device."""
+        names = tuple(mesh.mesh_dim_names)
+        sizes = dict(zip(names, mesh.shape))
+        dp_axes = dp if isinstance(dp, tuple) else (dp,) if dp else ()
+        dp_axes = tuple(a for a in dp_axes if a in sizes)
+        ranks = dict(ranks or {})
+        for a in names:
+            if a not in ranks:
+                ranks[a] = torch.tensor(mesh.get_local_rank(a), dtype=torch.int64,
+                                        device=mesh.device_type)
+        has_tp = tp in sizes
+        return ParallelCtx(
+            tp_axis=tp if has_tp else None,
+            dp_axis=dp_axes or None,
+            ep_axis=tp if has_tp else None,
+            cp_axis=cp if cp in sizes else None,
+            tp_size=sizes.get(tp, 1),
+            dp_size=math.prod(sizes[a] for a in dp_axes),
+            ep_size=sizes.get(tp, 1),
+            cp_size=sizes.get(cp, 1),
+            dp_axis_sizes=tuple(sizes[a] for a in dp_axes),
+            sp=sp,
+            rank=ranks[tp] if has_tp else None,
+            mesh_axes=names,
+            groups=tuple(mesh.get_group(a).group_name for a in names),
+            axis_ranks=tuple(ranks[a] for a in names),
+        )
 
     @staticmethod
     def tensor_parallel(size: int, rank: Optional[torch.Tensor] = None,
@@ -70,16 +119,30 @@ class ParallelCtx:
     def distributed(self) -> bool:
         return self.tp_axis is not None or self.dp_axis is not None
 
-    def _group(self) -> str:
-        """The name of the running axis' process group, as the functional
-        collective ops take it: the default group, which holds every rank
-        while one axis (tp or dp) runs."""
+    def axis_group(self, axis: str) -> str:
+        """The name of ``axis``' process group, as the functional collective
+        ops take it: the mesh's group for the axis, or, with one axis alone
+        (no mesh), the default group, which holds every rank."""
+        if self.mesh_axes:
+            return self.groups[self.mesh_axes.index(axis)]
         import torch.distributed as dist
 
         return dist.distributed_c10d._get_default_group().group_name
 
-    def _all_reduce(self, x, op: str):
-        return _c10d().wait_tensor(_c10d().all_reduce(x.contiguous(), op, self._group()))
+    def axis_index(self, axis: str):
+        """This rank's index along a mesh axis (a 0-d int64 tensor)."""
+        return self.axis_ranks[self.mesh_axes.index(axis)]
+
+    def _group(self) -> str:
+        return self.axis_group(self.tp_axis)
+
+    def psum(self, x, axis: str):
+        """``lax.psum`` over one mesh axis (the pipeline's stage axis)."""
+        return self._all_reduce(x, "sum", self.axis_group(axis))
+
+    def _all_reduce(self, x, op: str, group: Optional[str] = None):
+        return _c10d().wait_tensor(_c10d().all_reduce(
+            x.contiguous(), op, group or self._group()))
 
     # -- tensor-parallel collectives -----------------------------------------
     def psum_tp(self, x):
@@ -155,14 +218,15 @@ class ParallelCtx:
         return x
 
     # -- data-parallel -------------------------------------------------------
-    def _dp_ready(self) -> bool:
-        if self.dp_axis and self.tp_axis:
-            raise _unported(f"data parallelism over {self.dp_axis!r} beside tensor "
-                            f"parallelism over {self.tp_axis!r}")
-        return bool(self.dp_axis)
-
     def psum_dp(self, x):
-        return self._all_reduce(x, "sum") if self._dp_ready() else x
+        """``lax.psum`` over the data axes: one all_reduce on each axis'
+        group (their product's sum)."""
+        if not self.dp_axis:
+            return x
+        axes = self.dp_axis if isinstance(self.dp_axis, tuple) else (self.dp_axis,)
+        for a in axes:
+            x = self._all_reduce(x, "sum", self.axis_group(a))
+        return x
 
     def pmean_dp(self, x):
         """``lax.pmean``: the psum over the data axis, divided by its size."""

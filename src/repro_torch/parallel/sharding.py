@@ -151,19 +151,25 @@ def cache_specs(cache_shapes: Any, dp=None, tp: str = TP, cp=None):
     return tree_map_with_path(visit, cache_shapes)
 
 
-def shard_params(params: Any, specs: Any, rank: int, size: int, axis: str = TP):
-    """This rank's shard of every leaf: the dims that ``specs`` shards over
-    ``axis`` cut into ``size`` equal blocks, block ``rank`` kept (a
-    contiguous copy)."""
+def shard_params(params: Any, specs: Any, rank, size, axis: str = TP):
+    """This rank's shard of every leaf: each dim that ``specs`` shards over a
+    mesh axis cut into that axis' size in equal blocks, the block at this
+    rank's coordinate kept (a contiguous copy).  ``rank`` and ``size`` are
+    ints for one axis (``axis``), or dicts ``{axis: coordinate}`` and
+    ``{axis: size}`` over a mesh; a spec entry may name one axis or a tuple
+    of them, the first the outermost."""
     from repro_torch.tree import tree_flatten, tree_unflatten
 
+    ranks = rank if isinstance(rank, dict) else {axis: rank}
+    sizes = size if isinstance(size, dict) else {axis: size}
     leaves, treedef = tree_flatten(params)
     spec_leaves = tree_flatten(specs, is_leaf=is_spec)[0]
     out = []
     for t, spec in zip(leaves, spec_leaves):
         for d, entry in enumerate(spec):
-            if entry == axis:
-                n = t.shape[d] // size
-                t = t.narrow(d, rank * n, n)
+            for a in entry if isinstance(entry, tuple) else (entry,):
+                if a in sizes:
+                    n = t.shape[d] // sizes[a]
+                    t = t.narrow(d, ranks[a] * n, n)
         out.append(t.contiguous())
     return tree_unflatten(treedef, out)

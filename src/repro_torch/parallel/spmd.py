@@ -24,6 +24,10 @@ fed one position at a time against this rank's shard of the caches
 :func:`dp_forward` is the per-rank program of the verifier's ``dp-forward``
 scenario: every rank holds the whole single-device parameter set and runs
 the forward pass on its rows of the batch.
+:func:`tpdp_forward` runs both axes at once over a (data, model) mesh, the
+program of the ``tpdp-forward`` scenario, and :func:`pipeline_tp_forward`
+streams microbatches through ``pipeline_forward`` over a ("pod", "model")
+mesh, each stage the program of the ``stage`` scenario.
 """
 from __future__ import annotations
 
@@ -105,22 +109,39 @@ def run(fn: Callable, world: int, args: tuple = (), timeout: float = 600.0) -> l
     return [out[r] for r in range(world)]
 
 
+def _model_shard(cfg, seed: int, impl: str, dev: torch.device, coord: int, tp: int):
+    """The single-device parameters drawn from ``seed``, cut to the shard at
+    coordinate ``coord`` of a ``tp``-rank model axis (``param_specs``)."""
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import param_specs, shard_params
+
+    full = Model(cfg, impl=impl, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    return shard_params(full, param_specs(full), coord, tp)
+
+
 def _rank_model(rank: int, world: int, cfg, seed: int, impl: str, device: str,
                 sp: bool = False):
     """This rank's model and its shard of the single-device parameters drawn
     from ``seed``."""
     from repro_torch.models import Model
     from repro_torch.parallel.ctx import ParallelCtx
-    from repro_torch.parallel.sharding import param_specs, shard_params
 
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    full = Model(cfg, impl=impl, device=dev).init(gen)
-    params = shard_params(full, param_specs(full), rank, world)
-    del full
+    params = _model_shard(cfg, seed, impl, dev, rank, world)
     ctx = ParallelCtx.tensor_parallel(
         world, rank=torch.tensor(rank, dtype=torch.int64, device=dev), sp=sp)
     return Model(cfg, ctx, impl=impl, device=dev), params
+
+
+def _timed(dev: torch.device, fn):
+    """``fn()`` and its host time in ms, the card synchronized around it."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def tp_forward(rank: int, world: int, cfg, seed: int, inputs, impl: str = "kernel",
@@ -140,13 +161,7 @@ def tp_forward(rank: int, world: int, cfg, seed: int, inputs, impl: str = "kerne
     batch = tree_map(lambda t: t.to(dev),
                      inputs if isinstance(inputs, dict) else {"tokens": inputs})
     with torch.inference_mode(), record_routing() as routing:
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = model.forward(params, batch)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        logits, ms = _timed(dev, lambda: model.forward(params, batch))
     return {"logits": logits.cpu(), "ms": ms,
             "dropped": sum(int(r["dropped"]) for r in routing),
             "topk": [r["idx"].cpu() for r in routing]}
@@ -199,11 +214,93 @@ def dp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
     rows = tokens.shape[0] // world
     batch = {"tokens": tokens[rank * rows:(rank + 1) * rows].to(dev)}
     with torch.inference_mode():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = model.forward(params, batch)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        logits, ms = _timed(dev, lambda: model.forward(params, batch))
     return {"logits": logits.cpu(), "ms": ms}
+
+
+def tpdp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor, tp: int,
+                 impl: str = "kernel", device: str = "cuda") -> dict:
+    """One rank of the tp x dp forward pass of ``cfg`` (on the card unless
+    ``device`` says otherwise), the program the verifier's ``tpdp-forward``
+    scenario proves: the ranks form a (data, model) = (world / tp, tp) mesh
+    (``make_debug_mesh``); each draws the single-device parameters from
+    ``seed``, keeps the shard of its model coordinate, and runs the forward
+    pass on the rows of ``tokens`` (B, S) at its data coordinate, with the
+    model-axis collectives on the model axis' group.  Returns the rank's
+    coordinates, its (rows, vocab shard) block of the logits (on the CPU)
+    and the forward time in ms."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Model
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    dp = world // tp
+    if world % tp or tokens.shape[0] % dp:
+        raise ValueError(f"{world} ranks at tp={tp} do not split batch {tokens.shape[0]}")
+    dev = torch.device(device)
+    mesh = make_debug_mesh(tp, dp, device_type=dev.type)
+    ctx = ParallelCtx.from_mesh(mesh)
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    params = _model_shard(cfg, seed, impl, dev, m, tp)
+    model = Model(cfg, ctx, impl=impl, device=dev)
+    rows = tokens.shape[0] // dp
+    batch = {"tokens": tokens[d * rows:(d + 1) * rows].to(dev)}
+    with torch.inference_mode():
+        logits, ms = _timed(dev, lambda: model.forward(params, batch))
+    return {"data": d, "model": m, "logits": logits.cpu(), "ms": ms}
+
+
+def pipeline_tp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
+                        stages: int, n_micro: int, impl: str = "kernel",
+                        device: str = "cuda") -> dict:
+    """One rank of the pipeline x TP forward pass of ``cfg`` (on the card
+    unless ``device`` says otherwise) over a ("pod", "model") = (stages,
+    world / stages) mesh.  Each rank draws the single-device parameters
+    from ``seed``, keeps the shard of its model coordinate and, of the
+    layer stack, only its stage's layers.  Every rank embeds each of the
+    ``n_micro`` microbatches of ``tokens`` (B, S) (``vp_embed``), runs them
+    through ``pipeline_forward``, whose stage function is the stage's TP
+    layer slice (the program the ``stage`` scenario proves, without the
+    frontend and head), then the final norm and the head.  Returns the
+    rank's coordinates, its vocab shard of the logits (B, S, V_loc) (on
+    the CPU), the time of the whole pass in ms and the route the ring's
+    activations take (``parallel/pipeline.ring_shift``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.modules import rmsnorm
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.parallel.pipeline import pipeline_forward, stage_program
+
+    tp, period = world // stages, cfg.block_period
+    per_stage = cfg.n_layers // stages
+    if world % stages or cfg.n_layers % stages or per_stage % period \
+            or tokens.shape[0] % n_micro:
+        raise ValueError(f"{cfg.n_layers} layers and batch {tokens.shape[0]} do not split "
+                         f"into {stages} stages of whole block periods and {n_micro} "
+                         f"microbatches on {world} ranks")
+    dev = torch.device(device)
+    mesh = make_mesh((stages, tp), ("pod", "model"), device_type=dev.type)
+    ctx = ParallelCtx.from_mesh(mesh, dp=None)
+    s, m = mesh.get_local_rank("pod"), mesh.get_local_rank("model")
+    params = _model_shard(cfg, seed, impl, dev, m, tp)
+    lo, hi = s * per_stage, (s + 1) * per_stage
+    # this stage's layers only: each block position's slice, copied, so the
+    # other stages' layers are freed
+    params["blocks"] = tuple(tree_map(lambda a: a[lo // period:hi // period].clone(), blk)
+                             for blk in params["blocks"])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    model = Model(cfg, ctx, impl=impl, device=dev)
+    stage_fn = stage_program(model, lo, hi, first_block=lo // period)
+    micro = tokens.to(dev).reshape(n_micro, tokens.shape[0] // n_micro, *tokens.shape[1:])
+
+    def run():
+        x = torch.stack([model._inputs_to_hidden(params, {"tokens": t}) for t in micro])
+        y = pipeline_forward(stage_fn, params, x, n_stages=stages, ctx=ctx)
+        y = rmsnorm(params["ln_f"], y.flatten(0, 1), cfg.norm_eps)
+        return model._head(params, y)
+
+    with torch.inference_mode():
+        logits, ms = _timed(dev, run)
+    ring = ("gloo all_to_all of CPU tensors" if dev.type == "cpu" else
+            f"{dev.type} -> host copy -> gloo all_to_all of CPU tensors -> {dev.type}")
+    return {"pod": s, "model": m, "logits": logits.cpu(), "ms": ms, "ring": ring}

@@ -1,7 +1,8 @@
 """Command-line verification gate of the port (the JAX package's CLI, with
 graphs traced from the torch models).
 
-    python -m repro_torch.verify <arch> --tp 4 [--decode | --sp] [--layers N]
+    python -m repro_torch.verify <arch> --tp 4 [--decode | --sp | --pipeline K]
+                                 [--dp N] [--composite] [--layers N]
                                  [--json out.json|-] [--cache-dir DIR]
     python -m repro_torch.verify <arch> --dp 2
     python -m repro_torch.verify <moe arch> --ep 4
@@ -15,11 +16,11 @@ applicable scenario x every ``--arch``, plus ``--seeds`` fuzzer seeds;
 exit 1 on any missed detection or clean-cell false positive.
 
 The ``tp-forward``, ``tp-decode`` (``--decode``), ``sp-forward`` (``--sp``),
-``dp-forward`` (``--dp``) and ``ep-moe-forward`` (``--ep``) scenarios are
-ported: a plan that needs another (``--grad``, ``--pipeline``,
-``--composite``) exits 2 with the registry's list of what is available.  The lint tier
-(``--lint``, the ``lint`` and ``rulecheck`` verbs) is not ported yet and
-exits 2 as well.
+``dp-forward`` (``--dp``), ``ep-moe-forward`` (``--ep``), ``stage``
+(``--pipeline``) and ``tpdp-forward`` (``--composite``) scenarios are
+ported: a plan that needs dp-grad (``--grad``) exits 2 with the registry's
+list of what is available.  The lint tier (``--lint``, the ``lint`` and
+``rulecheck`` verbs) is not ported yet and exits 2 as well.
 
 Exit codes (stable contract for CI and launcher scripts):
 

@@ -14,10 +14,12 @@ Registered kinds (see ``python -m repro_torch.verify --list``):
                    around the norm regions vs the psum baseline)
 ``ep-moe-forward`` expert-parallel MoE forward (unrolled expert slice/add
                    loop + all_reduce vs the dense expert sum)
+``tpdp-forward``   tp x dp composite: the 2-D per-rank program vs the 1-D
+                   TP program (axis interaction)
+``stage``          one pipeline stage in isolation (TP inside the stage)
 
-The JAX package's other kinds (dp-grad, stage, tpdp-forward) are not
-ported yet: asking for one gives the registry's ``PlanError``, which lists
-what is registered.
+The JAX package's dp-grad is not ported yet: asking for it gives the
+registry's ``PlanError``, which lists what is registered.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from .harness import BuildCtx, GraphPair, round_layers
 from .registry import DEFAULT_SCENARIOS, ScenarioRegistry, ScenarioSpec
 
 # importing the scenario modules populates DEFAULT_SCENARIOS
-from . import dp, ep, sp, tp  # noqa: E402,F401
+from . import composite, dp, ep, pipeline, sp, tp  # noqa: E402,F401
 
 
 def build_pair(arch: str, plan: Plan, scen: Scenario, stamp: bool = True,

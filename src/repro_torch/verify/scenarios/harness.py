@@ -48,6 +48,10 @@ class GraphPair:
     stamp_s: float = 0.0
     stamped: bool = False
     base_cached: bool = False  # base trace served from the shared cache
+    # every axis the dist program's mesh declares (empty = just ``axis``);
+    # multi-axis scenarios set this so lint's ghost-axis check knows the
+    # orthogonal axes are legitimate
+    mesh_axes: tuple = ()
 
 
 @dataclass
@@ -70,9 +74,12 @@ class BuildCtx:
 
     def trace_base_sharded(self, tag: str, fn, size: int, in_specs, *shapes,
                            axis: str = "model", name: str = "dist"):
-        """Sharded-trace variant of :meth:`trace_base` over ``axis``.
-        ``tag`` must identify program + axis size + specs (the shape
-        signature covers only shapes)."""
+        """Sharded-trace variant of :meth:`trace_base`: ``size`` ranks over
+        ``axis``, or a mesh ``{axis: size}`` (:func:`trace_sharded`).  The
+        composite scenario's *baseline* is exactly tp-forward's distributed
+        trace, so with matching shapes they share one.  ``tag`` must
+        identify program + mesh + specs (the shape signature covers only
+        shapes)."""
         return self._traced(
             tag, lambda: trace_sharded(fn, size, in_specs, *shapes, axis=axis,
                                        name=name),

@@ -37,11 +37,19 @@ KNOWN_EXCEPTIONS = {
     "verify/scenarios/tp.py": "the rank is a traced input; decode traced functionalized",
     "verify/store.py": "the rules hash keys on the torch version",
     "verify/session.py": "the lint tier is not ported",
-    "verify/cli.py": "the lint tier and unported scenarios exit 2",
+    "verify/cli.py": "the lint tier and dp-grad exit 2",
     "verify/scenarios/__init__.py": "registers the ported scenarios only",
     "verify/scenarios/dp.py": "dp-grad needs the backward trace; torch pytrees",
     "verify/scenarios/ep.py": "the rank is a traced input; no AbstractMesh",
     "verify/campaign.py": "unported scenarios are reported, the lint tier is off",
+    "verify/scenarios/pipeline.py": "the rank is a traced input; the stage program "
+                                    "is shared with parallel/pipeline.py",
+    "verify/scenarios/composite.py": "the 2-D mesh is traced under the fake process "
+                                     "group, one subgroup an axis",
+    "parallel/ctx.py": "functional collectives on one process group an axis",
+    "parallel/pipeline.py": "a Python loop of ticks and an all_to_all ring in place "
+                            "of lax.scan and ppermute",
+    "launch/mesh.py": "a DeviceMesh over the running process group",
 }
 
 _IMPORT = re.compile(r"^(\s*)(from|import)\s+repro(_torch)?\.", re.M)

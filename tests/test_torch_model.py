@@ -397,3 +397,60 @@ def test_unported_families_and_missing_gpu_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Model(cfg)
+
+
+def _block_drawn_leaves(cfg) -> set:
+    """(path, shape) of each leaf of ``cfg``'s parameters that ``_init``
+    draws a block at a time (shapes only: ``param_shapes`` draws nothing)."""
+    from repro_torch.models import modules
+    from repro_torch.tree import tree_flatten_with_path
+
+    shapes = Model(cfg, impl="reference", device="cpu").param_shapes()
+    return {("/".join(map(str, p)), tuple(t.shape))
+            for p, t in tree_flatten_with_path(shapes)[0] if modules.drawn_in_blocks(t.shape)}
+
+
+def test_init_draws_every_other_leaf_whole():
+    """Every leaf of every config at SMOKE size, and every leaf of the
+    configs the card draws at full width (mixtral_8x7b cut to the 8 layers
+    it runs with), is drawn whole, as before the block path; at full width
+    only moonshot_v1_16b's expert stacks, which the card now draws, and the
+    largest stacks of configs whose weights do not fit on it pass the
+    threshold."""
+    from repro_torch.configs.base import ARCH_IDS, EXTRA_IDS
+
+    unfit = {"llama3_70b", "llama3_405b", "mixtral_8x7b", "mixtral_8x22b",
+             "jamba_1_5_large"}
+    for arch in sorted(set(ARCH_IDS) | set(EXTRA_IDS)):
+        assert not _block_drawn_leaves(get_config(arch, smoke=True)), arch
+        leaves = _block_drawn_leaves(get_config(arch))
+        assert bool(leaves) == (arch in unfit | {"moonshot_v1_16b"}), (arch, leaves)
+    assert _block_drawn_leaves(get_config("moonshot_v1_16b")) == {
+        (f"blocks/0/moe/{w}", shape) for w, shape in (
+            ("wg", (48, 64, 2048, 1408)), ("wu", (48, 64, 2048, 1408)),
+            ("wo", (48, 64, 1408, 2048)))}
+    assert not _block_drawn_leaves(dataclasses.replace(get_config("mixtral_8x7b"),
+                                                       n_layers=8))
+    # a whole draw: the f32 normal draw, scaled, rounded, as before
+    cfg = get_config("moonshot_v1_16b", smoke=True)
+    params = Model(cfg, impl="reference", device="cpu").init(torch.Generator().manual_seed(5))
+    want = torch.randn((cfg.vocab_p, cfg.d_model), generator=torch.Generator().manual_seed(5))
+    assert torch.equal(params["embed"]["w"], (want * 0.02).to(torch.bfloat16))
+
+
+def test_block_draw_is_init_block_by_block(monkeypatch):
+    """Past the threshold a leaf is drawn one leading-dim slice at a time,
+    each as ``_init`` draws a leaf of the slice's shape at the leaf's
+    scale, from the same generator stream."""
+    from repro_torch.models import modules
+
+    monkeypatch.setattr(modules, "BLOCK_DRAW_BYTES", 100)  # (3, 4, 5): 240 B; (4, 5): 80 B
+    got = modules._init(torch.Generator().manual_seed(7), (3, 4, 5), dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(7)
+    want = torch.stack([modules._init(gen, (4, 5), 3 ** -0.5, torch.bfloat16)
+                        for _ in range(3)])
+    assert modules.drawn_in_blocks((3, 4, 5)) and not modules.drawn_in_blocks((4, 5))
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    whole = modules._init(torch.Generator().manual_seed(7), (4, 5), 0.5, torch.bfloat16)
+    assert torch.equal(whole, (torch.randn((4, 5), generator=torch.Generator().manual_seed(7))
+                               * 0.5).to(torch.bfloat16))

@@ -190,12 +190,30 @@ def test_collectives_on_gloo_ranks():
         assert torch.equal(out["pmean_dp"], (xs[0] + xs[1]) / 2)
     with pytest.raises(NotImplementedError):
         ParallelCtx(cp_axis="data", cp_size=2).psum_cp(xs[0])
-    # beside tensor parallelism (tp x dp), the data axis is not ported yet
-    tpdp = dataclasses.replace(ParallelCtx.tensor_parallel(2), dp_axis="data", dp_size=2)
-    with pytest.raises(NotImplementedError):
-        tpdp.psum_dp(xs[0])
+    # beside tensor parallelism (tp x dp over a (data, model) mesh), each
+    # sum runs on its own axis' group: over 2 and over 2 of the 4 ranks
+    for rank, out in enumerate(spmd.run(_mesh_collectives_rank, 4, timeout=120)):
+        d, m = divmod(rank, 2)
+        assert (out["data"], out["model"], out["ranks"]) == (d, m, (d, m))
+        assert torch.equal(out["psum_tp"], torch.tensor([2.0 * d + 1 + 2 * d + 2]))
+        assert torch.equal(out["psum_dp"], torch.tensor([2.0 * m + 4]))
+        assert torch.equal(out["pmean_dp"], torch.tensor([m + 2.0]))
+        assert out["sizes"] == (2, 2, 2)
     assert ParallelCtx.single().psum_dp(xs[0]) is xs[0]
     assert batch_spec({"tokens": xs[0]}, "data") == {"tokens": P("data", None)}
+
+
+def _mesh_collectives_rank(rank, world):
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(tp=2, dp=world // 2, device_type="cpu")
+    ctx = ParallelCtx.from_mesh(mesh)
+    x = torch.tensor([rank + 1.0])
+    return {"data": mesh.get_local_rank("data"), "model": mesh.get_local_rank("model"),
+            "ranks": (int(ctx.axis_index("data")), int(ctx.tp_index())),
+            "psum_tp": ctx.psum_tp(x).clone(), "psum_dp": ctx.psum_dp(x).clone(),
+            "pmean_dp": ctx.pmean_dp(x).clone(),
+            "sizes": (ctx.tp_size, ctx.dp_size, ctx.ep_size)}
 
 
 def test_a_failing_rank_is_reported():

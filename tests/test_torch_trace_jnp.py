@@ -333,3 +333,62 @@ def test_router_scatter_add_is_jnp_at_add():
     # the wraps add each index's own dim: T for the tokens, E for the experts
     adds = [n for n in g if n.op == "add"]
     assert [g[n.inputs[1]].param("value") for n in adds] == [T, E]
+
+
+def test_two_axis_collectives_and_ranks_follow_lax():
+    """Over a ``{"data": 2, "model": 4}`` mesh each collective carries the
+    axis of the group it runs on, each rank read is one ``axis_index`` over
+    its axis, and each input is cut by both axes, as ``shard_map`` over
+    ``abstract_mesh((2, 4), ("data", "model"))`` traces."""
+    def tfn(ctx, x, w):
+        y = ctx.psum_tp(x @ w) * ctx.tp_index()
+        return ctx.psum_dp(y) + ctx.axis_index("data")
+
+    def jfn(x, w):
+        y = lax.psum(x @ w, "model") * lax.axis_index("model")
+        return lax.psum(y, ("data",)) + lax.axis_index("data")
+
+    shapes = [(4, 8), (8, 6)]
+    g, g_in, _ = trace_sharded(tfn, {"data": 2, "model": 4}, (P("data", "model"), P("model")),
+                               *[ShapeDtype(s, torch.float32) for s in shapes])
+    jg, jg_in, _ = jtrace_sharded(jfn, abstract_mesh((2, 4), ("data", "model")),
+                                  (JP("data", "model"), JP("model")), JP("data"),
+                                  *[jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes])
+    assert _body(g) == _body(jg)
+    for op in ("all_reduce", "axis_index"):
+        assert _param(g, op, "axes") == _param(jg, op, "axes")
+    assert _param(g, "all_reduce", "axes") == [("model",), ("data",)]
+    assert [g[i].shape for i in g_in] == [jg[i].shape for i in jg_in] == [(2, 2), (2, 6)]
+
+
+def test_tpdp_program_ir_follows_jax():
+    """The composite's 2-D program (SMOKE llama3_8b, tp 2 x dp 2) against
+    the JAX trace of the same program: live ops up to ``EMBED_DIFF``'s dist
+    difference, the collectives in order with their axes (the model axis
+    only: the forward reduces nothing over the data axis), one
+    ``axis_index`` over "model" for the embedding and none over "data" (no
+    op reads the data rank), and the per-rank input shapes."""
+    from repro.verify import Plan as JPlan
+    from repro.verify.scenarios import build_pair as jbuild_pair
+    from repro_torch.verify import Plan
+    from repro_torch.verify.scenarios import build_pair
+    from test_torch_verify import EMBED_DIFF, _live_ops
+
+    plan = Plan(tp=2, dp=2, composite=True, smoke=True)
+    jplan = JPlan(tp=2, dp=2, composite=True, smoke=True)
+    g = build_pair("llama3_8b", plan, plan.scenarios()[1], stamp=False)
+    jg = jbuild_pair("llama3_8b", jplan, jplan.scenarios()[1], stamp=False)
+    t, j = _live_ops(g.dist), _live_ops(jg.dist)
+    assert {op: t[op] - j[op] for op in t | j if t[op] != j[op]} == EMBED_DIFF["dist"]
+
+    def collectives(graph):
+        live = graph.toposort(graph.outputs)
+        return [(graph[i].op, graph[i].param("axes")) for i in live
+                if graph[i].op in ("all_reduce", "all_gather", "reduce_scatter",
+                                   "axis_index")]
+
+    assert collectives(g.dist) == collectives(jg.dist)
+    assert {axes for _, axes in collectives(g.dist)} == {("model",)}
+    assert [g.dist[i].shape for i in g.dist_inputs] == [jg.dist[i].shape
+                                                        for i in jg.dist_inputs]
+    assert g.dist[g.dist_inputs[-1]].shape == (2, 32)  # tokens (4, 32) over "data"

@@ -137,7 +137,7 @@ def test_full_depth_is_stamped():
 
 
 # (argv, the port's exit code, the reference's; None: not run, since the
-# reference supports the scenario the port does not have yet)
+# reference supports the scenario the port does not have yet, dp-grad)
 @pytest.mark.parametrize("argv,code,jax_code", [
     (["llama3_8b", "--tp", "4", "--layers", "2"], 0, 0),
     (["llama3_8b", "--tp", "4", "--layers", "2", "--inject", "drop_all_reduce"], 1, 1),
@@ -145,6 +145,9 @@ def test_full_depth_is_stamped():
     (["no_such_arch", "--tp", "4"], 2, 2),
     (["llama3_8b", "--dp", "2", "--layers", "2"], 0, 0),
     (["llama3_8b", "--grad", "--dp", "2"], 2, None),
+    (["llama3_8b", "--pipeline", "2", "--tp", "4", "--layers", "4"], 0, 0),
+    (["llama3_8b", "--tp", "4", "--dp", "2", "--composite", "--layers", "2"], 0, 0),
+    (["llama3_8b", "--pipeline", "2", "--tp", "1"], 2, 2),
 ])
 def test_cli_exit_codes_match_jax(argv, code, jax_code, capsys):
     assert cli.main(argv + ["--quiet"]) == code
@@ -153,7 +156,8 @@ def test_cli_exit_codes_match_jax(argv, code, jax_code, capsys):
 
 
 def test_cli_unported_and_lint_exit_2(capsys):
-    assert cli.main(["llama3_8b", "--pipeline", "2"]) == 2
+    assert cli.main(["llama3_8b", "--grad", "--dp", "2"]) == 2
+    assert "unknown scenario kind 'dp-grad'" in capsys.readouterr().err
     assert cli.main(["llama3_8b", "--tp", "4", "--lint"]) == 2
     assert cli.main(["lint", "--arch", "llama3_8b"]) == 2
     err = capsys.readouterr().err
@@ -165,6 +169,7 @@ def test_cli_unported_and_lint_exit_2(capsys):
     assert "tp-forward" in out and "llama3_8b" in out and "dp-grad" not in out
     assert "tp-decode" in out and "sp-forward" in out and "chatglm3_6b" in out
     assert "dp-forward" in out and "gemma_2b" in out
+    assert "stage" in out and "tpdp-forward" in out
 
 
 def test_warm_disk_cache_gives_the_same_canonical_report(tmp_path, capsys):
