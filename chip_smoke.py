@@ -10,7 +10,19 @@ Phases, one JSON line each: device (name, capability, power limit, kernel
 builds), kernel resources (each kernel's registers, stack and spills from
 the ``nvcc -Xptxas -v`` log, and its dynamic shared memory), kernel
 flash_attention, kernel rmsnorm and kernel ssd_scan (kernel against its
-plain PyTorch version on the card, with times), then for each model at full
+plain PyTorch version on the card, with times), then training, with grad
+enabled: train (qwen3_4b at full width and depth, bf16, 8 steps of the
+trainer's step on the reference path, as the launcher trains: every
+leaf's first gradient finite and nonzero, the first loss against the
+kernel path's, s/step, tokens/s and peak memory), train_parity (one f32
+step of qwen3_4b cut to 2 layers on the card and on its host, every
+updated leaf and moment compared), tpdp_train (that step on four gloo
+ranks sharing the card, data 2 x model 2, plain and ZeRO-1, against one
+device at the JAX reference's bounds, and each rank's moments and gradient
+norm against a plain first step from the ranks' local gradients) and train_launcher (the training
+launcher at SMOKE size on tp 2 x dp 2 ranks: the verification gate, a
+falling loss, checkpoint and resume, the refused ``--zero1 --dp 2``);
+then, under ``inference_mode``, for each model at full
 width, with random weights from a seeded generator: prefill (through the
 kernels, checked against the reference path) and serve (the engine answers
 four requests; prefill logits are checked against the engine path's
@@ -85,6 +97,7 @@ import platform
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,17 +107,24 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import ShapeSpec, get_config, input_specs  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.dryrun import _zero_flags_from_specs  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.parallel import spmd  # noqa: E402
 from repro_torch.parallel.ctx import ParallelCtx  # noqa: E402
-from repro_torch.parallel.sharding import cache_specs, shard_params  # noqa: E402
+from repro_torch.parallel.sharding import cache_specs, param_specs, shard_params  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, local_grads, make_step_fn  # noqa: E402
+from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map  # noqa: E402
 from repro_torch.verify import Plan, Session, run_campaign  # noqa: E402
 
 SEED = 0
@@ -298,6 +318,55 @@ TP_DECODE_CACHE_REL_RMS = 2e-2
 # it.  A rank that computes another rank's rows reads about 1.4.
 DP_TOKENS = (2, 1024)
 DP_LOGIT_BOUNDS = TP_LOGIT_BOUNDS
+# Training.  train: qwen3_4b at full width and depth, bf16, on the trainer's
+# path (impl="reference": the kernels have no backward), TRAIN_STEPS steps
+# of (batch, seq) TRAIN_BATCH from SyntheticLM.  Its first step's loss is
+# held to the loss the kernel path's logits give for the same weights and
+# batch, within TRAIN_LOSS_BOUND (absolute, in nats): 3x the largest
+# reading of scripts/train_loss_bounds.py on an H100 (0.0012 over seeds
+# 0-2, losses about 12.4; PERF.md section 6).
+TRAIN_BATCH, TRAIN_STEPS = (4, 256), 8
+TRAIN_LOSS_BOUND = 3.6e-3
+TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=2)
+# train_parity: one f32 step of qwen3_4b cut to PARITY_LAYERS layers on the
+# card and on its host, from the same weights, batch and state, TF32 off;
+# each quantity's worst relative error (a leaf's max abs error over its max
+# abs value) within 3x the first card run's reading, a reading under one f32
+# ulp (2^-23) taken as one ulp.  That run (H100 80GB HBM3, 700 W) read loss
+# 7.6e-8, grad_norm 0, m 3.9e-6, v 4.2e-6, params 6.2e-4: one step moves a
+# parameter by about lr * m / sqrt(v), whose sign flips where a gradient
+# sits near zero and the two devices' sums round it apart.
+PARITY_LAYERS, PARITY_BATCH = 2, (2, 64)
+PARITY_BOUNDS = {"loss": 3.6e-7, "grad_norm": 3.6e-7, "params": 1.9e-3, "m": 1.2e-5,
+                 "v": 1.3e-5}
+# tpdp_train: one f32 step of qwen3_4b cut to PARITY_LAYERS layers on four
+# gloo ranks sharing the card, a (data, model) = (2, TPDP_TP) mesh, global
+# batch TPDP_TRAIN_BATCH, against the single-device step on the card, plain
+# and ZeRO-1, at the JAX reference's own bounds
+# (tests/test_tp_equivalence.py:131-142): loss relative error and the worst
+# parameter's absolute delta.  Those bounds pass a rank whose loss drops the
+# label logit's psum (a 3.4e-4 relative change at random weights, where the
+# label logits are small beside the log-sum-exp, and AdamW's first step
+# hides the gradient's scale), so each rank's loss is also held to the
+# single device's within TPDP_TRAIN_LOSS_REL: 3x one f32 ulp, the first card
+# runs on an H100 having read the same loss bit for bit.
+# A first AdamW step moves every parameter by about lr whatever its
+# gradient, so the parameter bound cannot see the data-axis reduction, its
+# ``/ dp``, the ZeRO-1 scatter or the clip.  Each rank's moments and
+# gradient norm are therefore also held, within TPDP_TRAIN_MOMENT_REL (the
+# worst leaf's max abs error over its max abs value; the norm's relative
+# error), to a plain first step computed on the rank from every data rank's
+# local gradients, gathered by torch.distributed's own all_gather: their
+# mean, its norm, the clip, and m = (1 - b1) g, v = (1 - b2) g^2 (ZeRO-1:
+# the rank's slice).  The two differ only in the order in which the norm's
+# squares are summed, a few f32 ulps (2^-23 each).
+TPDP_TRAIN_BATCH = (4, 256)
+TPDP_TRAIN_BOUNDS = (0.02, 2e-2)
+TPDP_TRAIN_LOSS_REL = 3.6e-7
+TPDP_TRAIN_MOMENT_REL = 1e-5
+TPDP_TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=1)
+TPDP_TRAIN_VARIANTS = {"plain": TrainConfig(opt=TPDP_TRAIN_OPT, remat=False),
+                       "zero1": TrainConfig(opt=TPDP_TRAIN_OPT, remat=False, zero1=True)}
 # MoE logits (RMS about 1) against another run of the same model, as three
 # limits: (relative RMS error, max abs error) over every token ("all"); the
 # same over the tokens that both runs route alike, with equal top-k expert
@@ -1348,6 +1417,288 @@ def phase_pipeline_forward(gen) -> list:
     return launches
 
 
+def _keyed(tree) -> dict:
+    return {"/".join(map(str, path)): t for path, t in tree_flatten_with_path(tree)[0]}
+
+
+def _sync_s(t0: float) -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_train() -> dict:
+    """qwen3_4b at full width and depth trains for TRAIN_STEPS steps of the
+    port's ``make_step_fn`` (bf16, remat off, as the launcher) on the card.
+    Checks: every leaf's gradient on the first batch is finite with a
+    nonzero norm (a kernel that cut the graph would leave some at zero);
+    every loss and gradient norm is finite; the first step's loss is within
+    TRAIN_LOSS_BOUND of the kernel path's loss for the same weights and
+    batch.  Prints s/step and tokens/s (median of steps 2 on), the peak
+    device memory over init and the steps, and each loss."""
+    cfg = get_config("qwen3_4b")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Model(cfg, impl="reference", device="cuda")  # the trainer's path
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    init_s = _sync_s(t0)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_BATCH[1], TRAIN_BATCH[0], seed=SEED))
+    batches = [tree_map(lambda t: t.cuda(), data.batch_at(s)) for s in range(TRAIN_STEPS)]
+    tcfg = TrainConfig(opt=TRAIN_OPT, remat=False)
+    _, grads = local_grads(model, tcfg, params, batches[0])
+    norms = {k: float(torch.linalg.vector_norm(g, dtype=torch.float32))
+             for k, g in _keyed(grads).items()}
+    del grads
+    t0 = time.perf_counter()  # the forward and backward alone, warm
+    grads = local_grads(model, tcfg, params, batches[0])[1]
+    grads_s = _sync_s(t0)
+    del grads
+    with torch.inference_mode():
+        kernel_loss = float(Model(cfg, device="cuda").loss(params, batches[0]))
+    opt = adamw_init(params)
+    step = make_step_fn(model, tcfg)
+    reset_counts()
+    losses, gnorms, times = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        times.append(_sync_s(t0))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = counts()
+    s_step = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    zero = sorted(k for k, n in norms.items() if not (math.isfinite(n) and n > 0))
+    emit("train", arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, impl="reference",
+         batch=list(TRAIN_BATCH), steps=TRAIN_STEPS, params_b=sum(
+             t.numel() for t in tree_leaves(params)) / 1e9, init_s=init_s,
+         s_per_step=s_step, tokens_per_s=tokens / s_step, step_s=times,
+         forward_backward_s=grads_s, losses=losses,
+         grad_norms=gnorms, kernel_path_loss=kernel_loss,
+         first_loss_diff=abs(losses[0] - kernel_loss), loss_bound=TRAIN_LOSS_BOUND,
+         grad_leaves=len(norms), zero_or_nonfinite_grad_leaves=zero,
+         held_before_init_gib=held / 2**30,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    del model, params, opt, batches
+    torch.cuda.empty_cache()
+    if zero:
+        raise AssertionError(f"train: leaves without a finite nonzero gradient: {zero}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train: non-finite loss or grad norm: {losses} {gnorms}")
+    if not abs(losses[0] - kernel_loss) <= TRAIN_LOSS_BOUND:
+        raise AssertionError(f"train: first loss {losses[0]} vs the kernel path's "
+                             f"{kernel_loss}, bound {TRAIN_LOSS_BOUND}")
+    return launches
+
+
+def _worst_rel(got, want) -> float:
+    """The worst leaf's max abs error over its max abs value."""
+    return max(float((a.cpu().double() - b.double()).abs().max())
+               / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def phase_train_parity() -> dict:
+    """One f32 step of qwen3_4b (full width, PARITY_LAYERS layers) on the card
+    and on the host's CPU, from the same weights, batch and state, TF32 off:
+    the loss, the gradient norm, and every updated parameter and moment
+    agree within PARITY_BOUNDS.  The link from the card to the CPU tests,
+    which hold the port to JAX."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3_4b"), n_layers=PARITY_LAYERS,
+                              dtype="float32")
+    params = Model(cfg, impl="reference", device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED + 2))
+    host = tree_map(lambda t: t.to("cpu", copy=True), params)
+    batch = SyntheticLM(DataConfig(cfg.vocab, PARITY_BATCH[1], PARITY_BATCH[0],
+                                   seed=SEED)).batch_at(0)
+    tcfg = TrainConfig(opt=TRAIN_OPT, remat=False)
+    out, seconds = {}, {}
+    for dev, p in (("cuda", params), ("cpu", host)):
+        model = Model(cfg, impl="reference", device=dev)
+        opt = adamw_init(p)
+        reset_counts()
+        t0 = time.perf_counter()
+        out[dev] = make_step_fn(model, tcfg)(p, opt, tree_map(lambda t: t.to(dev), batch))
+        seconds[dev] = _sync_s(t0)
+        if dev == "cuda":
+            launches = counts()
+    (gp, gs, gm), (hp, hs, hm) = out["cuda"], out["cpu"]
+    errs = {"loss": abs(float(gm["loss"]) - float(hm["loss"])) / abs(float(hm["loss"])),
+            "grad_norm": abs(float(gm["grad_norm"]) - float(hm["grad_norm"]))
+            / float(hm["grad_norm"]),
+            "params": _worst_rel(gp, hp), "m": _worst_rel(gs["m"], hs["m"]),
+            "v": _worst_rel(gs["v"], hs["v"])}
+    emit("train_parity", arch=cfg.name, layers=PARITY_LAYERS, dtype=cfg.dtype,
+         batch=list(PARITY_BATCH), host=host_cpu(), loss={d: float(m["loss"]) for d, (
+             _, _, m) in out.items()}, grad_norm={d: float(m["grad_norm"]) for d, (
+                 _, _, m) in out.items()}, rel_err=errs, bounds=PARITY_BOUNDS,
+         step_s=seconds, launches=launches)
+    del out, params, host, gp, gs
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in errs.items() if not v <= PARITY_BOUNDS[k]}
+    if bad:
+        raise AssertionError(f"train_parity: the card's step differs from the host's: {bad}")
+    return launches
+
+
+def _first_step_errors(r: dict, data_group, dp: int, opt: AdamWConfig, flags,
+                       device: str = "cuda") -> dict:
+    """The rank's first-step moments and gradient norm against a plain first
+    step from every data rank's local gradients (``r["grads"]``), gathered
+    over ``data_group`` by torch.distributed's all_gather: their mean, its
+    norm, the clip, m = (1 - b1) g and v = (1 - b2) g^2, the rank's slice of
+    each ZeRO-1 leaf (``flags``; None: unsharded moments)."""
+    grads = tree_leaves(r["grads"])
+    means = []
+    for g in grads:
+        parts = [torch.empty_like(g) for _ in range(dp)]
+        torch.distributed.all_gather(parts, g.contiguous(), group=data_group)
+        means.append(sum(parts[1:], parts[0]).to(device) / dp)
+    norm = math.sqrt(sum(float(torch.sum(torch.square(g.double()))) for g in means))
+    clip = min(1.0, opt.grad_clip / max(norm, 1e-12))
+    dims = tree_leaves(flags) if flags is not None else [-1] * len(means)
+    err = {"m": 0.0, "v": 0.0}
+    for g, dim, m, v in zip(means, dims, tree_leaves(r["opt"]["m"]),
+                            tree_leaves(r["opt"]["v"])):
+        g = g * clip
+        if dim >= 0:
+            n = g.shape[dim] // dp
+            g = g.narrow(dim, r["data"] * n, n)
+        for name, got, want in (("m", m, (1 - opt.b1) * g), ("v", v, (1 - opt.b2) * g * g)):
+            e = float((got.to(device) - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            err[name] = max(err[name], e)
+    err["grad_norm"] = abs(r["metrics"][0]["grad_norm"] - norm) / norm
+    return err
+
+
+def tpdp_train_rank(rank: int, world: int, cfg, seed: int, batch: dict,
+                    ref_path: str) -> dict:
+    """One rank of the tpdp_train phase (runs in a spawned process): each
+    variant's step, its kernel counts read around it, the worst delta of
+    the rank's updated shards from the same shards of the single-device
+    step (read from ``ref_path``), and its moments' and gradient norm's
+    errors from a plain first step (``_first_step_errors``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path, mmap=True)
+    dp = world // TPDP_TP
+    data_group = make_debug_mesh(TPDP_TP, dp, device_type="cpu").get_group("data")
+    flags = _zero_flags_from_specs(ref, dp, param_specs(ref))
+    out = {}
+    for variant, tcfg in TPDP_TRAIN_VARIANTS.items():
+        reset_counts()
+        r = spmd.train_step(rank, world, cfg, seed, [batch], TPDP_TP, tcfg, device="cuda",
+                            grads=True)
+        launches = counts()
+        want = shard_params(ref, param_specs(ref), r["model"], TPDP_TP)
+        worst = max(float((a - b).abs().max())
+                    for a, b in zip(tree_leaves(r["params"]), tree_leaves(want)))
+        errs = _first_step_errors(r, data_group, dp, tcfg.opt,
+                                  flags if tcfg.zero1 else None)
+        out[variant] = {"data": r["data"], "model": r["model"], "loss": r["losses"][0],
+                        "grad_norm": r["metrics"][0]["grad_norm"], "ms": r["ms"][0],
+                        "worst_param_delta": worst, "first_step_rel_err": errs,
+                        "launches": launches}
+        del r, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tpdp_train() -> dict:
+    """One train step of qwen3_4b (full width, PARITY_LAYERS layers, f32) on
+    four gloo ranks sharing the card, a (data, model) = (2, TPDP_TP) mesh,
+    plain and ZeRO-1, each against the single-device step on the card from
+    the same weights and batch, at TPDP_TRAIN_BOUNDS, and each rank's moments
+    and gradient norm against a plain first step, at TPDP_TRAIN_MOMENT_REL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3_4b"), n_layers=PARITY_LAYERS,
+                              dtype="float32")
+    seed = SEED + 3
+    batch = SyntheticLM(DataConfig(cfg.vocab, TPDP_TRAIN_BATCH[1], TPDP_TRAIN_BATCH[0],
+                                   seed=SEED)).batch_at(0)
+    model = Model(cfg, impl="reference", device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    t0 = time.perf_counter()
+    params, _, metrics = make_step_fn(model, TPDP_TRAIN_VARIANTS["plain"])(
+        params, adamw_init(params), tree_map(lambda t: t.cuda(), batch))
+    single_s = _sync_s(t0)
+    ref_loss = float(metrics["loss"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "single_device_step.pt")
+        torch.save(tree_map(lambda t: t.cpu(), params), path)
+        del model, params, metrics
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spmd.run(tpdp_train_rank, TP_SIZE, (cfg, seed, batch, path), timeout=900)
+        seconds = time.perf_counter() - t0
+    launches = {}
+    for variant in TPDP_TRAIN_VARIANTS:
+        rows = [r[variant] for r in ranks]
+        emit("tpdp_train", arch=cfg.name, variant=variant, tp=TPDP_TP,
+             dp=TP_SIZE // TPDP_TP, layers=PARITY_LAYERS, dtype=cfg.dtype,
+             batch=list(TPDP_TRAIN_BATCH), backend="gloo", single_device_loss=ref_loss,
+             single_device_step_s=single_s, bounds=list(TPDP_TRAIN_BOUNDS),
+             loss_rel_bound=TPDP_TRAIN_LOSS_REL, moment_rel_bound=TPDP_TRAIN_MOMENT_REL,
+             seconds=seconds, per_rank=rows)
+        launches[variant] = [r["launches"] for r in rows]
+        for r in rows:
+            rel = abs(r["loss"] - ref_loss) / abs(ref_loss)
+            errs = r["first_step_rel_err"]
+            if not (rel < TPDP_TRAIN_BOUNDS[0] and rel <= TPDP_TRAIN_LOSS_REL
+                    and r["worst_param_delta"] < TPDP_TRAIN_BOUNDS[1]
+                    and all(e <= TPDP_TRAIN_MOMENT_REL for e in errs.values())):
+                raise AssertionError(f"tpdp_train {variant}: rank ({r['data']}, "
+                                     f"{r['model']}) loss {r['loss']} vs {ref_loss}, "
+                                     f"worst param delta {r['worst_param_delta']}, "
+                                     f"first-step errors {errs}")
+    return launches
+
+
+def _launch(argv: list) -> tuple[int, list, float]:
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = launch_train.main(argv)
+    return code, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_train_launcher() -> None:
+    """The training launcher on the card at SMOKE size, tp 2 x dp 2 gloo ranks
+    sharing it: the verification gate passes and the loss falls by more
+    than 0.3 in 40 steps (the JAX reference's
+    test_train_verify_gate_and_loss_decreases); 20 steps with checkpoints,
+    then a resume to 30 from step 20; ``--zero1 --dp 2`` exits 2 before
+    training."""
+    smoke = ["--arch", "qwen3_4b", "--smoke", "--tp", "2", "--dp", "2", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = ["--ckpt-dir", tmp, "--ckpt-every", "10", "--skip-verify"]
+        runs = [("learn", [*smoke, "--steps", "40", "--seq", "64", "--batch", "8",
+                           "--lr", "3e-3"], 0),
+                ("checkpoint", [*smoke, "--steps", "20", *ckpt], 0),
+                ("resume", [*smoke, "--steps", "30", "--resume", *ckpt], 0),
+                ("zero1", ["--arch", "qwen3_4b", "--smoke", "--zero1", "--dp", "2",
+                           "--device", "cuda"], 2)]
+        for name, argv, want in runs:
+            code, out, seconds = _launch(argv)
+            losses = [float(m) for m in re.findall(r"loss (\d+\.\d+)", "\n".join(out))]
+            emit("train_launcher", run=name, argv=argv, exit=code, seconds=seconds,
+                 losses=losses, out=out)
+            ok = code == want
+            if name == "learn":
+                ok &= (any(line.startswith("[verify] VERIFIED") for line in out)
+                       and len(losses) > 1 and losses[0] - losses[-1] > 0.3)
+            elif name == "checkpoint":
+                ok &= "[ckpt] saved step 20" in out
+            elif name == "resume":
+                ok &= (any(line.startswith("[ckpt] resumed") and line.endswith("at step 20")
+                           for line in out) and "[done] 10 steps" in "\n".join(out))
+            else:
+                ok &= bool(out) and "REFUSED" in out[0] and not losses
+            if not ok:
+                raise AssertionError(f"train_launcher {name}: exit {code}: {out}")
+
+
 def phase_serve_verified() -> None:
     """The serving launcher with its decode-plan pre-flight on the card:
     ``--verify-tp 2`` for qwen3_4b proves the plan, then serves; ``--verify-tp
@@ -1422,6 +1773,12 @@ def main() -> int:
         fa_rows = phase_flash(gen)
         rn_row = phase_rmsnorm(gen)
         ssd_row = phase_ssd(gen_ssm)
+    # training runs with grad enabled, outside inference_mode
+    train_launches = phase_train()
+    parity_launches = phase_train_parity()
+    tpdp_train_launches = phase_tpdp_train()
+    phase_train_launcher()
+    with torch.inference_mode():
         cfg = get_config("qwen3_4b")
         model = Model(cfg, device="cuda")
         params = model.init(gen)
@@ -1522,7 +1879,10 @@ def main() -> int:
              "tp_forward granite_moe_3b, each rank": moe_tp_launches,
              "tp_decode, each rank": decode_launches,
              "tpdp_forward, each rank": tpdp_launches,
-             "pipeline_forward, each rank": pipe_launches}
+             "pipeline_forward, each rank": pipe_launches,
+             "train qwen3_4b": train_launches,
+             f"train_parity ({PARITY_LAYERS} layers, the card's step)": parity_launches,
+             **{f"tpdp_train {v}, each rank": n for v, n in tpdp_train_launches.items()}}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -68,6 +68,23 @@
 #                         phase must find the composite's tpdp-forward row
 #                         unverified, and the tpdp_forward phase, run on its
 #                         own after chip_smoke.py, fails its logit check
+# Faults in training:
+#   train_kernel_path_unguarded  the train phase trains on impl="kernel"
+#                         (chip_smoke.py) and the kernels' refusal of
+#                         autograd is removed (kernels/ops.py): K1 cuts the
+#                         graph, so the train phase's every-leaf gradient
+#                         check must fail (wq, wk, wv, qnorm, knorm at zero)
+#   loss_label_psum_dropped  Model.loss takes each rank's own part of the
+#                         label logit, without its psum over the model axis
+#                         (models/model.py); the tpdp_train phase must fail
+#   dp_grad_psum_dropped  the train step skips the data-axis all-reduce of
+#                         the gradients (train/trainer.py): each rank
+#                         updates from its own rows' gradients; tpdp_train's
+#                         first-step moment check must fail
+#   dp_grad_mean_undivided  the all-reduced gradients are not divided by the
+#                         data axis' size (train/trainer.py): the gradient
+#                         norm doubles; tpdp_train's first-step check must
+#                         fail
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
@@ -76,13 +93,14 @@ faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box fa_d80_box_
 ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped \
 tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped \
 sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one \
-pipeline_ring_stalled tpdp_psum_on_data_group}
+pipeline_ring_stalled tpdp_psum_on_data_group train_kernel_path_unguarded \
+loss_label_psum_dropped dp_grad_psum_dropped dp_grad_mean_undivided}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
 csrc=kernels/csrc
 for name in $faults; do
-  alone=
+  alone= file2=  # file2: a second edit, old2 -> new2, relative to the tree's root
   case $name in
     fa_diagonal_unmasked)
       file=$csrc/flash_attention.cu phase=flash_attention
@@ -168,6 +186,27 @@ for name in $faults; do
       new='return self._all_reduce(x, "sum", self.axis_group(self.dp_axis[0]) if self.mesh_axes and self.dp_axis else None) if self.tp_axis else x
 
     def pmax_tp' ;;
+    train_kernel_path_unguarded)
+      file=kernels/ops.py phase=train alone=
+      old='    if not torch.is_grad_enabled():
+        return'
+      new='    if True:
+        return'
+      file2=chip_smoke.py
+      old2='model = Model(cfg, impl="reference", device="cuda")  # the trainer'"'"'s path'
+      new2='model = Model(cfg, impl="kernel", device="cuda")  # the trainer'"'"'s path' ;;
+    loss_label_psum_dropped)
+      file=models/model.py phase=tpdp_train alone=
+      old='label_logit = ctx.psum_tp(torch.where(tgt, lf, 0.0).sum(-1))'
+      new='label_logit = torch.where(tgt, lf, 0.0).sum(-1)' ;;
+    dp_grad_psum_dropped)
+      file=train/trainer.py phase=tpdp_train alone=
+      old='grads = allreduce_compressed(grads, tcfg.grad_compress, ctx.dp_axis, ctx)'
+      new='grads = grads' ;;
+    dp_grad_mean_undivided)
+      file=train/trainer.py phase=tpdp_train alone=
+      old='grads = tree_map(lambda g: g / ctx.dp_size, grads)'
+      new='grads = tree_map(lambda g: g / 1, grads)' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name
@@ -175,7 +214,12 @@ for name in $faults; do
   cp -r "$root/chip_smoke.py" "$root/src" "$dir/"
   rm -rf "$dir/src/repro_torch/kernels/build"
   cu=$dir/src/repro_torch/$file
-  OLD=$old NEW=$new python3 - "$cu" <<'PY'
+  edits="$cu|$root/src/repro_torch/$file"
+  [ -n "$file2" ] && edits="$edits $dir/$file2|$root/$file2"
+  for edit in $edits; do
+    path=${edit%%|*}
+    if [ "$path" = "$cu" ]; then o=$old n=$new; else o=$old2 n=$new2; fi
+    OLD=$o NEW=$n python3 - "$path" <<'PY'
 import os, sys
 path = sys.argv[1]
 text = open(path).read()
@@ -184,13 +228,15 @@ if text.count(old) != 1:
     sys.exit(f"{path}: the text to replace occurs {text.count(old)} times")
 open(path, "w").write(text.replace(old, new))
 PY
-  if cmp -s "$cu" "$root/src/repro_torch/$file"; then
-    echo "$name: the edit did not apply"
-    exit 2
-  fi
+    if cmp -s "$path" "${edit#*|}"; then
+      echo "$name: the edit of $path did not apply"
+      exit 2
+    fi
+  done
   (cd "$dir" && timeout 900 python3 chip_smoke.py) > "$out/fault_$name.txt" 2>&1
   echo "$name: chip_smoke.py exit $?"
   diff "$root/src/repro_torch/$file" "$cu" | grep '^>'
+  [ -n "$file2" ] && diff "$root/$file2" "$dir/$file2" | grep '^>'
   grep -E "\"(kernel )?$phase\"" "$out/fault_$name.txt" | cut -c 1-600
   grep -a -o -m 1 -E "[A-Za-z]*Error: .{0,400}" "$out/fault_$name.txt"
   if [ -n "$alone" ]; then  # the TP phase that runs this program, on its own

@@ -4,16 +4,37 @@ A tensor on the CPU takes the kernel's plain PyTorch version.  A CUDA tensor
 on a capability-(9, 0) device launches the kernel; on any other device the
 kernel's wrapper raises.  A failed build or launch raises; nothing falls
 back.
+
+The kernels have no backward, as the Pallas kernels they port have none: a
+CUDA kernel writes into a fresh tensor outside autograd, so a gradient
+through it would be cut without a word.  Every wrapper therefore refuses an
+input that autograd tracks (``requires_grad`` under grad mode, or a
+``torch.func`` grad transform's tensor), on both devices, so that the CPU
+tests catch what the card would do.  Training runs ``impl="reference"``.
 """
 from __future__ import annotations
+
+import torch
+from torch._C import _functorch
 
 from . import flash_attention as _fa
 from . import rmsnorm as _rn
 from . import ssd_scan as _ssd
 
 
+def _refuse_autograd(name: str, *tensors) -> None:
+    if not torch.is_grad_enabled():
+        return
+    if any(t.requires_grad or _functorch.is_gradtrackingtensor(t) for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward (neither has the Pallas kernel it "
+            f"ports): it would cut the autograd graph; train with "
+            f"Model(impl='reference'), or call it under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D)."""
+    _refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal)
     return _fa.flash_attention(q, k, v, causal=causal)
@@ -21,6 +42,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):
     """x: (..., D); scale: (D,)."""
+    _refuse_autograd("rmsnorm", x, scale)
     if x.device.type == "cpu":
         return _rn.rmsnorm_plain(x, scale, eps=eps)
     return _rn.rmsnorm(x, scale, eps=eps)
@@ -28,6 +50,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm/Cm: (B,S,N) -> y (B,S,H,P) f32."""
+    _refuse_autograd("ssd_scan", x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)

@@ -1,1 +1,2 @@
-"""Launchers: the serving launcher."""
+"""Launchers: the serving and training launchers, and the dry run's ZeRO-1
+spec helpers."""

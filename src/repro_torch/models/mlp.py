@@ -71,6 +71,21 @@ def _top_k_fake(x, k):
     return x.new_empty(shape), x.new_empty(shape, dtype=torch.int64)
 
 
+def _top_k_setup(ctx, inputs, output):
+    ctx.save_for_backward(output[1])
+    ctx.n = inputs[0].shape[-1]
+
+
+def _top_k_backward(ctx, g_vals, g_idx):
+    """``lax.top_k``'s gradient: each value's cotangent at its index."""
+    (idx,) = ctx.saved_tensors
+    gx = g_vals.new_zeros((*g_vals.shape[:-1], ctx.n))
+    return gx.scatter(-1, idx, g_vals), None
+
+
+top_k.register_autograd(_top_k_backward, setup_context=_top_k_setup)
+
+
 def moe_init(generator, cfg, *, stacked: tuple = (), dtype=torch.bfloat16):
     E, D, F_ = cfg.experts, cfg.d_model, cfg.d_ff_expert
     p = {

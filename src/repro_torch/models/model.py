@@ -12,7 +12,9 @@ default) runs prefill/forward attention through the flash-attention kernel
 and the SSD scan through its kernel, the counterpart of the JAX
 ``impl="pallas"``; ``impl="reference"`` keeps ``chunked_attention`` and
 ``ssd_chunked``.  Decode bypasses both kernels (``chunked_attention`` and
-the O(1) ``ssm_decode`` recurrence).
+the O(1) ``ssm_decode`` recurrence).  The kernels have no backward and
+refuse a tensor that autograd tracks (``kernels/ops.py``), so ``loss`` is
+differentiated on ``impl="reference"``.
 
 MoE layers run ``MOE_IMPLS[moe_impl]``: the capacity dispatch
 (``"capacity"``, the default, what prefill, decode and TP execution run) or
@@ -29,6 +31,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.parallel.collectives import vp_embed, vp_embed_sp
@@ -188,24 +191,56 @@ class Model:
                 x = x + mlp_fwd(cfg, ctx, lparams["mlp"], hn)
         return x
 
-    def forward(self, params, batch, *, unroll: bool = False):
+    def _block(self, params, x, positions, i: int):
+        """Block ``i``: layers ``i*P .. i*P+P-1`` (P the block period), each
+        in its ``layer<li>`` scope."""
+        P = self.cfg.block_period
+        for j in range(P):
+            with named_scope(f"layer{i * P + j}"):
+                x = self._layer_fwd(_tree_index(params["blocks"][j], i), x, positions, j)
+        return x
+
+    def forward(self, params, batch, *, unroll: bool = False, remat: bool = False):
         """Full forward -> logits (B, S, V_loc[, sharded over tp]).  Each layer
         runs in a ``layer<i>`` scope (per-layer memoization in the verifier).
-        ``unroll`` is accepted for the JAX signature; layers are always a
-        Python loop."""
+        ``remat`` recomputes each block period in the backward pass
+        (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``
+        around the JAX package's scanned block).  ``unroll`` is accepted for
+        the JAX signature; layers are always a Python loop."""
         del unroll
         cfg, ctx = self.cfg, self.ctx
         x = self._inputs_to_hidden(params, batch)
         S = x.shape[1] * (ctx.tp_size if ctx.sp else 1)
         positions = torch.arange(S, device=x.device)
-        P = cfg.block_period
-        for li in range(cfg.n_layers):
-            with named_scope(f"layer{li}"):
-                lp = _tree_index(params["blocks"][li % P], li // P)
-                x = self._layer_fwd(lp, x, positions, li % P)
+        for i in range(cfg.n_layers // cfg.block_period):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(self._block, params, x, positions, i,
+                                                      use_reentrant=False)
+            else:
+                x = self._block(params, x, positions, i)
         x = ctx.sp_exit(x)
         x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return self._head(params, x)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch, *, remat: bool = False):
+        """Vocab-parallel cross entropy over f32 logits (never gathers them):
+        a padded vocab's columns masked to -1e30, the stability shift ``m``
+        taken of a detached copy before its ``pmax`` (any shift gives the
+        same value, and the max has no gradient, as in JAX), the
+        log-sum-exp and the label logit each summed over the model axis,
+        and the mean NLL.  The vocab offset is the rank tensor's."""
+        cfg, ctx = self.cfg, self.ctx
+        lf = self.forward(params, batch, remat=remat).float()
+        V_loc = lf.shape[-1]
+        gidx = ctx.tp_index() * V_loc + torch.arange(V_loc, device=lf.device)
+        if cfg.vocab_p != cfg.vocab:
+            lf = torch.where(gidx >= cfg.vocab, -1e30, lf)
+        m = ctx.pmax_tp(lf.detach().amax(dim=-1))
+        lse = torch.log(ctx.psum_tp(torch.exp(lf - m[..., None]).sum(-1))) + m
+        tgt = batch["labels"][..., None] == gidx
+        label_logit = ctx.psum_tp(torch.where(tgt, lf, 0.0).sum(-1))
+        return (lse - label_logit).mean()
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Prefill: the full forward.  As in the JAX package it returns the

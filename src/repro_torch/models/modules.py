@@ -55,6 +55,24 @@ def _dynamic_slice_fake(x, start, axis, size):
     return x.new_empty(shape)
 
 
+def _dynamic_slice_setup(ctx, inputs, output):
+    x, start, axis, size = inputs
+    ctx.save_for_backward(start)
+    ctx.shape, ctx.axis = x.shape, axis
+
+
+def _dynamic_slice_backward(ctx, g):
+    """The slice's cotangent placed back at its (clamped) start."""
+    (start,) = ctx.saved_tensors
+    n, size = ctx.shape[ctx.axis], g.shape[ctx.axis]
+    s = torch.where(start < 0, start + n, start).clamp(0, n - size)
+    gx = g.new_zeros(ctx.shape)
+    return gx.index_add(ctx.axis, s + torch.arange(size, device=g.device), g), None, None, None
+
+
+_dynamic_slice.register_autograd(_dynamic_slice_backward, setup_context=_dynamic_slice_setup)
+
+
 def dynamic_slice_in_dim(x, start, size: int, axis: int):
     """``size`` entries of ``x`` along ``axis`` from the 0-d tensor ``start``
     (a traced rank under the verifier's tracer, which lowers this op as

@@ -21,8 +21,16 @@ its collectives on the default group, which holds every rank.  Over a
 one rank tensor per mesh axis: the model-axis collectives (``psum_tp``,
 ``gather_tp``, ``scatter_tp``, ``pmax_tp``, ``psum_ep``) run on the model
 axis' group and ``psum_dp``/``pmean_dp`` on each data axis' group, so tp x
-dp runs as the JAX package's 2-D shard_map does.  The context-parallel axis
-raises ``NotImplementedError``.
+dp runs as the JAX package's 2-D shard_map does.  ``pmax``, ``psum_scatter``
+and ``all_gather`` run on any named axis (training's data-axis collectives).
+The context-parallel axis raises ``NotImplementedError``.
+
+Gradients flow through every collective as through JAX's transposes: a psum's
+cotangent is psummed, an all_gather's is psum_scattered and a psum_scatter's
+is all_gathered (the functional ops have no autograd formula of their own).
+A value that autograd does not track takes the plain op, so the verifier's
+traces are unchanged.  A max is never differentiated: callers detach first,
+as JAX stops the gradient before ``pmax``.
 """
 from __future__ import annotations
 
@@ -39,6 +47,82 @@ def _unported(what) -> NotImplementedError:
 
 def _c10d():
     return torch.ops._c10d_functional
+
+
+def _all_reduce(x, op: str, group: str):
+    return _c10d().wait_tensor(_c10d().all_reduce(x.contiguous(), op, group))
+
+
+def _gather0(x, n: int, group: str):
+    """The ranks' ``x`` concatenated along dim 0, in rank order."""
+    return _c10d().wait_tensor(_c10d().all_gather_into_tensor(x.contiguous(), n, group))
+
+
+def _scatter0(x, n: int, group: str):
+    """This rank's block of dim 0 of the ranks' sum of ``x``."""
+    return _c10d().wait_tensor(_c10d().reduce_scatter_tensor(x.contiguous(), "sum", n,
+                                                              group))
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _Gather0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, group):
+        ctx.n, ctx.group = n, group
+        return _gather0(x, n, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter0(g, ctx.n, ctx.group), None, None
+
+
+class _Scatter0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, group):
+        ctx.n, ctx.group = n, group
+        return _scatter0(x, n, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather0(g, ctx.n, ctx.group), None, None
+
+
+def _tracked(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def psum_op(x, group: str):
+    """All-reduce sum on ``group``, differentiable as ``lax.psum``."""
+    return _Psum.apply(x, group) if _tracked(x) else _all_reduce(x, "sum", group)
+
+
+def gather0_op(x, n: int, group: str):
+    """Dim-0 all_gather, differentiable (its transpose a reduce_scatter)."""
+    return _Gather0.apply(x, n, group) if _tracked(x) else _gather0(x, n, group)
+
+
+def scatter0_op(x, n: int, group: str):
+    """Dim-0 reduce_scatter, differentiable (its transpose an all_gather)."""
+    return _Scatter0.apply(x, n, group) if _tracked(x) else _scatter0(x, n, group)
+
+
+def _via_host(fn, x):
+    """``fn(x)`` on a CPU copy of a CUDA ``x``, moved back: gloo's CUDA
+    all_gather did not finish in an earlier probe of the port, and gloo
+    stages CUDA tensors through the host anyway."""
+    if x.device.type == "cpu":
+        return fn(x)
+    return fn(x.cpu()).to(x.device)
 
 
 @dataclass(frozen=True)
@@ -133,16 +217,67 @@ class ParallelCtx:
         """This rank's index along a mesh axis (a 0-d int64 tensor)."""
         return self.axis_ranks[self.mesh_axes.index(axis)]
 
+    def axis_size(self, axis: str) -> int:
+        if axis == self.tp_axis:
+            return self.tp_size
+        axes = self.dp_axis if isinstance(self.dp_axis, tuple) else (self.dp_axis,)
+        if axis in axes and self.dp_axis_sizes:
+            return self.dp_axis_sizes[axes.index(axis)]
+        if axis in axes:
+            return self.dp_size
+        raise ValueError(f"{axis!r} is not an axis of this context")
+
+    def dp_index(self):
+        """This rank's index along the data axes, linearized in mesh order
+        (``lax.axis_index`` over the tuple of data axes; 0 without one)."""
+        if not self.dp_axis:
+            return 0
+        axes = self.dp_axis if isinstance(self.dp_axis, tuple) else (self.dp_axis,)
+        idx = 0
+        for a in axes:
+            idx = idx * self.axis_size(a) + self.axis_index(a)
+        return idx
+
     def _group(self) -> str:
         return self.axis_group(self.tp_axis)
 
     def psum(self, x, axis: str):
-        """``lax.psum`` over one mesh axis (the pipeline's stage axis)."""
-        return self._all_reduce(x, "sum", self.axis_group(axis))
+        """``lax.psum`` over one mesh axis (the pipeline's stage axis, a data
+        axis)."""
+        return psum_op(x, self.axis_group(axis))
+
+    def pmax(self, x, axis: str):
+        """``lax.pmax`` over one mesh axis, of a value autograd does not
+        track."""
+        return _all_reduce(x, "max", self.axis_group(axis))
+
+    def psum_scatter(self, x, axis: str, dim: int):
+        """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+        the sum over the axis' ranks, cut along ``dim`` into its size in
+        blocks, this rank's block kept.  A CUDA tensor goes through the
+        host."""
+        n, group, dim = self.axis_size(axis), self.axis_group(axis), dim % x.ndim
+
+        def run(t):
+            if dim:
+                t = torch.cat(torch.chunk(t, n, dim=dim))
+            return scatter0_op(t, n, group)
+        return _via_host(run, x)
+
+    def all_gather(self, x, axis: str, dim: int):
+        """``lax.all_gather(x, axis, axis=dim, tiled=True)``: the axis'
+        ranks' blocks concatenated along ``dim`` in rank order.  A CUDA
+        tensor goes through the host."""
+        n, group, dim = self.axis_size(axis), self.axis_group(axis), dim % x.ndim
+
+        def run(t):
+            y = gather0_op(t, n, group)
+            return torch.cat(torch.chunk(y, n, dim=0), dim=dim) if dim else y
+        return _via_host(run, x)
 
     def _all_reduce(self, x, op: str, group: Optional[str] = None):
-        return _c10d().wait_tensor(_c10d().all_reduce(
-            x.contiguous(), op, group or self._group()))
+        group = group or self._group()
+        return psum_op(x, group) if op == "sum" else _all_reduce(x, op, group)
 
     # -- tensor-parallel collectives -----------------------------------------
     def psum_tp(self, x):
@@ -150,30 +285,20 @@ class ParallelCtx:
         return self._all_reduce(x, "sum") if self.tp_axis else x
 
     def pmax_tp(self, x):
+        """The max over the model axis, of a value autograd does not track."""
         return self._all_reduce(x, "max") if self.tp_axis else x
 
     def gather_tp(self, x, axis: int):
         """Tiled all_gather along ``axis``: the dim-0 functional collective,
         then the rank blocks moved to ``axis`` (chunk + cat, which the
         verifier's tracer folds back into one all_gather along ``axis``)."""
-        if not self.tp_axis:
-            return x
-        y = _c10d().wait_tensor(_c10d().all_gather_into_tensor(
-            x.contiguous(), self.tp_size, self._group()))
-        axis %= x.ndim
-        return torch.cat(torch.chunk(y, self.tp_size, dim=0), dim=axis) if axis else y
+        return self.all_gather(x, self.tp_axis, axis) if self.tp_axis else x
 
     def scatter_tp(self, x, axis: int):
         """reduce_scatter along ``axis``: partial-sum in, shard out (the rank
         blocks of ``axis`` moved to dim 0 first, for the dim-0 functional
         collective; the tracer folds this back as in ``gather_tp``)."""
-        if not self.tp_axis:
-            return x
-        axis %= x.ndim
-        if axis:
-            x = torch.cat(torch.chunk(x, self.tp_size, dim=axis))
-        return _c10d().wait_tensor(_c10d().reduce_scatter_tensor(
-            x.contiguous(), "sum", self.tp_size, self._group()))
+        return self.psum_scatter(x, self.tp_axis, axis) if self.tp_axis else x
 
     def tp_index(self):
         if not self.tp_axis:

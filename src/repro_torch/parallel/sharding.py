@@ -4,7 +4,8 @@ These rules ARE the verifier's input relation registration: a leaf spec that
 shards dim d over the tp axis registers ``sharded(b, d', d)``; replicated
 leaves register ``duplicate``.  The same table cuts one single-device
 parameter set into the per-rank shards that TP execution runs on
-(``shard_params``).
+(``shard_params``), and gathers the shards back into the logical leaves that
+a checkpoint stores (``unshard_params``).
 
 Megatron-style TP over axis "model" (the JAX package's table, dim for dim):
   embed (V,D)        -> vocab-parallel      P('model', None)
@@ -172,4 +173,23 @@ def shard_params(params: Any, specs: Any, rank, size, axis: str = TP):
                     n = t.shape[d] // sizes[a]
                     t = t.narrow(d, ranks[a] * n, n)
         out.append(t.contiguous())
+    return tree_unflatten(treedef, out)
+
+
+def unshard_params(shards: Any, specs: Any, ctx) -> Any:
+    """The inverse of ``shard_params`` on every rank of ``ctx``'s mesh: each
+    dim that ``specs`` shards over a mesh axis of ``ctx`` all_gathered along
+    that axis (``ctx.all_gather``), so every rank holds the full logical
+    leaves.  A spec axis the context lacks is left as it is."""
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(shards)
+    spec_leaves = tree_flatten(specs, is_leaf=is_spec)[0]
+    out = []
+    for t, spec in zip(leaves, spec_leaves):
+        for d, entry in reversed(list(enumerate(spec))):
+            for a in reversed(entry if isinstance(entry, tuple) else (entry,)):
+                if a is not None and a in ctx.mesh_axes:
+                    t = ctx.all_gather(t, a, d)
+        out.append(t)
     return tree_unflatten(treedef, out)

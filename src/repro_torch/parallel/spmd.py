@@ -28,6 +28,9 @@ the forward pass on its rows of the batch.
 program of the ``tpdp-forward`` scenario, and :func:`pipeline_tp_forward`
 streams microbatches through ``pipeline_forward`` over a ("pod", "model")
 mesh, each stage the program of the ``stage`` scenario.
+:func:`train_step` runs steps of the trainer's ``make_step_fn`` over a
+(data, model) mesh, the port's counterpart of the JAX package's
+``shard_map`` of the train step.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ def _worker(fn, rank: int, world: int, port: int, args: tuple, results) -> None:
     # gloo binds to the interface the host name resolves to, and hangs where
     # that is not reachable; the ranks all run on this host
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # the ranks share the host's cores: more threads a rank only contend
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     try:
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=world)
@@ -304,3 +309,65 @@ def pipeline_tp_forward(rank: int, world: int, cfg, seed: int, tokens: torch.Ten
     ring = ("gloo all_to_all of CPU tensors" if dev.type == "cpu" else
             f"{dev.type} -> host copy -> gloo all_to_all of CPU tensors -> {dev.type}")
     return {"pod": s, "model": m, "logits": logits.cpu(), "ms": ms, "ring": ring}
+
+
+def train_step(rank: int, world: int, cfg, init, batches: list, tp: int, tcfg,
+               device: str = "cuda", sp: bool = False, grads: bool = False) -> dict:
+    """One rank of the trainer's step over a (data, model) = (world / tp, tp)
+    mesh (``make_debug_mesh``), on ``impl="reference"`` (the kernels have
+    no backward), on the card unless ``device`` says otherwise.  ``init``
+    is a seed from which every rank draws the single-device parameters, or
+    that parameter tree itself (CPU tensors); each rank keeps the shard of
+    its model coordinate (``param_specs``) and starts from ``adamw_init``,
+    or with ``tcfg.zero1`` from ``zero1_init``'s moments, a data-axis
+    slice of each leaf's ``_zero_flags_from_specs`` dim.  Each of
+    ``batches`` (global batches, dicts of CPU tensors) is one step, the
+    rank taking the rows at its data coordinate.  Returns the rank's
+    coordinates, each step's loss, metrics and ms, the updated parameter
+    shards and optimizer moments and, with ``grads``, the first batch's
+    local gradients (before any data-axis reduction), all on the CPU."""
+    from repro_torch.launch.dryrun import _zero_flags_from_specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Model
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.parallel.sharding import param_specs, shard_params
+    from repro_torch.train.optimizer import adamw_init, zero1_init
+    from repro_torch.train.trainer import local_grads, make_step_fn
+
+    dp = world // tp
+    dev = torch.device(device)
+    mesh = make_debug_mesh(tp, dp, device_type=dev.type)
+    ctx = ParallelCtx.from_mesh(mesh, sp=sp)
+    d, m = int(ctx.dp_index()), mesh.get_local_rank("model")
+    model = Model(cfg, ctx, impl="reference", device=dev)
+    if isinstance(init, int):
+        full = Model(cfg, impl="reference", device=dev).init(
+            torch.Generator(device=dev).manual_seed(init))
+    else:
+        # a copy: the step updates in place, and a replicated leaf's shard
+        # is the leaf itself
+        full = tree_map(lambda t: t.to(dev, copy=True), init)
+    pspecs = param_specs(full)
+    flags = _zero_flags_from_specs(full, dp, pspecs) if tcfg.zero1 else None
+    params = shard_params(full, pspecs, m, tp)
+    del full
+    opt = adamw_init(params) if flags is None else zero1_init(params, dp, flags)
+    step_fn = make_step_fn(model, tcfg, shard_flags=flags)
+
+    def rows(batch):
+        n = next(iter(batch.values())).shape[0] // dp
+        return tree_map(lambda x: x[d * n:(d + 1) * n].to(dev), batch)
+
+    out = {"data": d, "model": m, "losses": [], "metrics": [], "ms": []}
+    if grads:
+        out["grads"] = tree_map(lambda g: g.cpu(),
+                                local_grads(model, tcfg, params, rows(batches[0]))[1])
+    for batch in batches:
+        local = rows(batch)
+        (params, opt, metrics), ms = _timed(dev, lambda: step_fn(params, opt, local))
+        out["losses"].append(float(metrics["loss"]))
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["ms"].append(ms)
+    out["params"] = tree_map(lambda t: t.cpu(), params)
+    out["opt"] = {k: tree_map(lambda t: t.cpu(), opt[k]) for k in ("m", "v")}
+    return out

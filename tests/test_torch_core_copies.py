@@ -19,7 +19,7 @@ COPIES = [
         "engine", "fusion", "layout", "legacy", "parshard", "propagator", "reduce",
         "registry", "sliceops")),
     "verify/plan.py", "verify/specs.py", "verify/scenarios/registry.py",
-    "verify/scenarios/sp.py",
+    "verify/scenarios/sp.py", "train/straggler.py",
     *(f"configs/{a}.py" for a in (
         "llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b", "gemma_2b",
         "llama3_70b", "llama3_405b", "hubert_xlarge", "internvl2_26b",

@@ -157,8 +157,11 @@ def test_port_imports_without_jax():
     assert int(res.stdout.split()[-1]) >= 60  # incl. core/, core/rules/, verify/
 
 
+# msgpack and zstandard, which the JAX package's checkpoints use, are absent
+# on the card's machine
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$|,)|from\s+repro[\s.])")
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$|,)|from\s+repro[\s.]"
+    r"|(import|from)\s+(msgpack|zstandard)\b)")
 
 
 def test_port_sources_name_no_jax_or_repro_import():
