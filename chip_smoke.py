@@ -19,9 +19,12 @@ step of qwen3_4b cut to 2 layers on the card and on its host, every
 updated leaf and moment compared), tpdp_train (that step on four gloo
 ranks sharing the card, data 2 x model 2, plain and ZeRO-1, against one
 device at the JAX reference's bounds, and each rank's moments and gradient
-norm against a plain first step from the ranks' local gradients) and train_launcher (the training
+norm against a plain first step from the ranks' local gradients; then the
+same step sequence-parallel, its loss, moments and norm also held to the
+TP step's) and train_launcher (the training
 launcher at SMOKE size on tp 2 x dp 2 ranks: the verification gate, a
-falling loss, checkpoint and resume, the refused ``--zero1 --dp 2``);
+falling loss, checkpoint and resume, a sequence-parallel launch whose gate
+proves the SP plan, the refused ``--zero1 --dp 2``);
 then, under ``inference_mode``, for each model at full
 width, with random weights from a seeded generator: prefill (through the
 kernels, checked against the reference path) and serve (the engine answers
@@ -61,7 +64,12 @@ tp-forward pair, gemma_2b's tp-forward and dp-forward pairs, hubert_xlarge's
 tp-forward pair, internvl2_26b's sp-forward pair, and granite_moe_3b's and
 mixtral_8x7b's tp-forward, tp-decode, sp-forward and ep-moe-forward pairs,
 each cell's outcome and localization held to the JAX reference's),
-dp_forward (the verifier's dp-forward program on two gloo ranks sharing the
+dp_grad (the port's ``Session`` proves the gradient-sync contract,
+``Plan.grad(dp=2)``, for llama3_8b and qwen3_4b at full width, 8 layers;
+then ``spmd.dp_grad``, the program proved, runs on two gloo ranks sharing
+the card, llama3_8b at full width with two layers in f32, each rank's
+psummed gradient held leaf by leaf to the single device's full-batch
+gradient), dp_forward (the verifier's dp-forward program on two gloo ranks sharing the
 card, gemma_2b at full width and depth, flash attention on every layer of
 every rank; each rank's logits held to its rows of the single-device
 forward), tp_forward (the per-rank TP program the verifier
@@ -69,10 +77,17 @@ proves, run on four gloo ranks sharing the card, llama3_8b at full width
 with two layers, then granite_moe_3b at full width with four layers, 12 of
 its 48 experts a rank, flash attention on every layer of every rank;
 logits gathered on rank 0 and held to the single-device model; the pairs
-each rank's experts dropped beside the single device's), tp_decode (the
+each rank's experts dropped beside the single device's; llama3_8b's ranks
+then run the sequence-parallel program the verifier's sp-forward proves,
+sp_forward, held to the single device and to the TP program), tp_decode (the
 proved per-rank decode step on the same four ranks: a 32-token prompt fed
 one position at a time, then 8 more steps; every step's logits and the
 final KV cache shards held to the single-device ``decode_step``),
+cp_decode (the decode step with the KV cache cut along the sequence over a
+context-parallel axis, tp 2 x cp 2 on the same ranks: llama3_8b with two
+layers, caches of 8192 positions filled by a one-device prefill of 4090
+tokens, 12 steps whose write moves from the first sequence shard to the
+second; every step's logits held to the single-device ``decode_step``),
 tpdp_forward (the verifier's tp x dp program on the same four ranks as a
 (data, model) = (2, 2) mesh, llama3_8b with two layers; each rank's rows
 and vocab columns of the logits held to the single device's),
@@ -197,6 +212,35 @@ TPDP_TP, TPDP_TOKENS = 2, (2, 1024)
 # logits held to the single device's at TP_LOGIT_BOUNDS (the ring moves
 # activations unchanged; TP changes the order of the row-parallel sums).
 PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO, PIPE_SEQ = 2, 4, 4, 1024
+# The context-parallel decode step: llama3_8b, TP_LAYERS layers, bf16, on
+# four gloo ranks as a (data, model) = (CP_SIZE, CP_TP) mesh whose data axis
+# cuts the KV cache along the sequence (CP_MAX_LEN / CP_SIZE positions a
+# rank).  The single-device caches are filled by the prefill of a
+# CP_PROMPT prompt, then CP_STEPS tokens are decoded from position
+# CP_PROMPT[1], so the write moves from the first sequence shard to the
+# second mid-run; every step's vocab shard of the logits is held to the
+# single-device decode_step at TP_LOGIT_BOUNDS (the flash-decode merge sums
+# the shards' partial softmax in another order, and TP the row-parallel
+# sums).
+CP_TP, CP_SIZE = 2, 2
+CP_MAX_LEN, CP_PROMPT, CP_STEPS = 8192, (2, 4090), 12
+# dp-grad, the DP gradient-sync contract.  The verify part proves
+# Plan.grad(dp=DP_SIZE) for DP_GRAD_VERIFY at full width, DP_GRAD_VERIFY_LAYERS
+# layers, seq 8 (the JAX package's own case is 2 layers), on the card's
+# host.  At full depth both verify there too, in 27.8 s (llama3_8b) and
+# 40.0 s (qwen3_4b) on an H100 machine's host, but the whole run then took
+# 797 s, past the 12 minutes it is held to, so the depth is cut.  The run
+# part runs spmd.dp_grad, the program proved, on DP_SIZE gloo ranks:
+# llama3_8b at full width with DP_GRAD_LAYERS layers, f32, TF32 off, tokens
+# DP_GRAD_TOKENS, one row a rank; each rank's psummed gradient is held to
+# the single device's full-batch gradient, leaf by leaf (max abs error over
+# the leaf's max abs value), within DP_GRAD_REL: about 3x the first card
+# run's reading (H100 80GB HBM3, 700 W), 1.29e-5 at worst (ln_f's scale;
+# the others 1.1e-6 to 7.8e-6), the psum adding the two rows' gradients in
+# another order than one device's products over both rows.
+DP_GRAD_VERIFY, DP_GRAD_VERIFY_LAYERS = ("llama3_8b", "qwen3_4b"), 8
+DP_GRAD_LAYERS, DP_GRAD_TOKENS = 2, (2, 256)
+DP_GRAD_REL = 4e-5
 # The JAX reference's outcome of every cell of ``python -m repro.verify
 # campaign --arch <arch> --tp 4 --scenarios <scenario>`` (written here as
 # data: this script imports nothing of the JAX package), by (arch,
@@ -359,14 +403,24 @@ PARITY_BOUNDS = {"loss": 3.6e-7, "grad_norm": 3.6e-7, "params": 1.9e-3, "m": 1.2
 # local gradients, gathered by torch.distributed's own all_gather: their
 # mean, its norm, the clip, and m = (1 - b1) g, v = (1 - b2) g^2 (ZeRO-1:
 # the rank's slice).  The two differ only in the order in which the norm's
-# squares are summed, a few f32 ulps (2^-23 each).
+# squares are summed, a few f32 ulps (2^-23 each).  The "sp" variant is the
+# plain step with sequence parallelism (the model axis' psums become a
+# reduce_scatter and an all_gather, through the host on the card); each
+# rank's loss is also held to the TP step's within TPDP_TRAIN_LOSS_REL, and
+# its first-step m, v and gradient norm to the TP step's within
+# TPDP_TRAIN_MOMENT_REL (the TP step's own moments being held to the plain
+# first step, the SP step's are not gathered again).
 TPDP_TRAIN_BATCH = (4, 256)
 TPDP_TRAIN_BOUNDS = (0.02, 2e-2)
 TPDP_TRAIN_LOSS_REL = 3.6e-7
 TPDP_TRAIN_MOMENT_REL = 1e-5
 TPDP_TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=1)
-TPDP_TRAIN_VARIANTS = {"plain": TrainConfig(opt=TPDP_TRAIN_OPT, remat=False),
-                       "zero1": TrainConfig(opt=TPDP_TRAIN_OPT, remat=False, zero1=True)}
+# variant -> (train config, sequence parallelism); the SP step runs right
+# after the plain one, whose loss, moments and norm it is held to
+TPDP_TRAIN_VARIANTS = {"plain": (TrainConfig(opt=TPDP_TRAIN_OPT, remat=False), False),
+                       "sp": (TrainConfig(opt=TPDP_TRAIN_OPT, remat=False), True),
+                       "zero1": (TrainConfig(opt=TPDP_TRAIN_OPT, remat=False, zero1=True),
+                                 False)}
 # MoE logits (RMS about 1) against another run of the same model, as three
 # limits: (relative RMS error, max abs error) over every token ("all"); the
 # same over the tokens that both runs route alike, with equal top-k expert
@@ -1181,26 +1235,34 @@ def phase_dp_forward(gen) -> list:
     return launches
 
 
-def tp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
-    """One rank of the tp_forward phase (runs in a spawned process): a
-    warm-up forward, then one forward with the kernels' counts read around
-    it; rank 0 gathers the vocab shards of the logits (gloo, on the host)."""
+def tp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor,
+            modes: tuple = (False,)) -> dict:
+    """One rank of the tp_forward phase (runs in a spawned process), for each
+    of ``modes`` (sequence parallelism off, on): a warm-up forward, then one
+    forward with the kernels' counts read around it; rank 0 gathers the
+    vocab shards of the logits (gloo, on the host)."""
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    spmd.tp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda")
-    reset_counts()
-    out = spmd.tp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda")
-    launches = counts()
-    shards = [torch.empty_like(out["logits"]) for _ in range(world)] if rank == 0 else None
-    dist.gather(out["logits"], shards, dst=0)
-    logits = torch.cat(shards, dim=-1) if rank == 0 else None
-    return {"ms": out["ms"], "launches": launches, "logits": logits,
-            "dropped": out["dropped"], "topk": out["topk"]}
+    runs = {}
+    for sp in modes:
+        spmd.tp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda", sp=sp)
+        reset_counts()
+        out = spmd.tp_forward(rank, world, cfg, seed, tokens, impl="kernel", device="cuda",
+                              sp=sp)
+        launches = counts()
+        shards = ([torch.empty_like(out["logits"]) for _ in range(world)] if rank == 0
+                  else None)
+        dist.gather(out["logits"], shards, dst=0)
+        logits = torch.cat(shards, dim=-1) if rank == 0 else None
+        runs["sp" if sp else "tp"] = {"ms": out["ms"], "launches": launches,
+                                      "logits": logits, "dropped": out["dropped"],
+                                      "topk": out["topk"]}
+    return runs
 
 
 def phase_tp_forward(gen, arch: str = "llama3_8b", layers: int = TP_LAYERS,
-                     bounds=TP_LOGIT_BOUNDS) -> list:
+                     bounds=TP_LOGIT_BOUNDS, sp: bool = False):
     """The per-rank TP program the verifier proves, on four gloo ranks that
     share the card (NCCL refuses two ranks on one device; gloo stages the
     all_reduces through the host), ``arch`` at full width with ``layers``
@@ -1209,7 +1271,11 @@ def phase_tp_forward(gen, arch: str = "llama3_8b", layers: int = TP_LAYERS,
     config's experts split over the ranks, each running the capacity
     dispatch for its own (``first = rank * E_loc``), with capacity from the
     global token count; the pairs each rank's experts dropped are printed
-    beside the single device's."""
+    beside the single device's.  With ``sp`` the same ranks then run the
+    sequence-parallel program the verifier's sp-forward proves (its
+    sequence reduce_scatters and all_gathers through the host), held to the
+    single device and to the TP program's logits (its ``sp_forward``
+    line); returns (TP launches, SP launches or None)."""
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
     tokens = torch.randint(0, cfg.vocab, TP_TOKENS, generator=gen, device="cuda").cpu()
@@ -1222,8 +1288,10 @@ def phase_tp_forward(gen, arch: str = "llama3_8b", layers: int = TP_LAYERS,
         del params
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spmd.run(tp_rank, TP_SIZE, (cfg, seed, tokens), timeout=600)
+    runs = spmd.run(tp_rank, TP_SIZE, (cfg, seed, tokens, (False, True) if sp else (False,)),
+                    timeout=600)
     seconds = time.perf_counter() - t0
+    ranks = [r["tp"] for r in runs]
     launches = [r["launches"] for r in ranks]
     name = f"tp_forward {arch} TP-4 vs single device"
     check = (moe_logit_check(name, ranks[0]["logits"].cuda(), ref, ranks[0]["topk"],
@@ -1240,7 +1308,30 @@ def phase_tp_forward(gen, arch: str = "llama3_8b", layers: int = TP_LAYERS,
          forward_ms_per_rank=[r["ms"] for r in ranks], seconds=seconds, **moe, **check)
     if any(n != want for n in launches):
         raise AssertionError(f"each rank's forward launched {launches}, expected {want}")
-    return launches
+    if not sp:
+        return launches, None
+    sp_ranks = [r["sp"] for r in runs]
+    sp_launches = [r["launches"] for r in sp_ranks]
+    got = sp_ranks[0]["logits"].cuda()
+    emit("sp_forward", arch=cfg.name, tp=TP_SIZE, layers=layers, tokens=list(TP_TOKENS),
+         dtype=cfg.dtype, backend="gloo", collectives="sequence reduce_scatter and "
+         "all_gather of CUDA tensors through the host", flash_shape_per_rank=[
+             TP_TOKENS[0], cfg.heads // TP_SIZE, cfg.kv_heads // TP_SIZE, TP_TOKENS[1],
+             TP_TOKENS[1], cfg.hd], launches_per_rank=sp_launches,
+         forward_ms_per_rank=[r["ms"] for r in sp_ranks], seconds=seconds,
+         vs_single_device=logit_check(f"sp_forward {arch} SP TP-4 vs single device", got,
+                                      ref, bounds),
+         vs_tp_forward=logit_check(f"sp_forward {arch} SP vs TP program", got,
+                                   ranks[0]["logits"].cuda(), bounds))
+    if any(n != want for n in sp_launches):
+        raise AssertionError(f"each rank's SP forward launched {sp_launches}, "
+                             f"expected {want}")
+    return launches, sp_launches
+
+
+def phase_sp_forward(gen):
+    """The sp_forward check on its own: the TP program, then the SP one."""
+    return phase_tp_forward(gen, sp=True)
 
 
 def tp_decode_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
@@ -1315,6 +1406,172 @@ def phase_tp_decode(gen) -> list:
     want = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
     if any(n != want for n in launches):
         raise AssertionError(f"a rank's decode launched {launches}, expected {want}")
+    return launches
+
+
+def cp_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor, caches) -> dict:
+    """One rank of the cp_decode phase (runs in a spawned process): the
+    context-parallel decode steps, with the kernels' counts read around
+    them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    out = spmd.cp_decode(rank, world, cfg, seed, tokens, CP_PROMPT[1], caches, CP_TP,
+                         device="cuda")
+    return {**out, "launches": counts()}
+
+
+def prefill_caches(model, params, tokens, max_len: int) -> tuple:
+    """The single-device prefill's KV caches (an attention stack): the
+    forward pass collects each layer's K/V, after RoPE, and they fill
+    positions [0, S) of ``init_cache``'s zeroed buffers of ``max_len``."""
+    kv: list = []
+    model.forward(params, {"tokens": tokens}, kv_out=kv)
+    caches = model.init_cache(tokens.shape[0], max_len)
+    for n, (k, v) in enumerate(kv):
+        i, j = divmod(n, model.cfg.block_period)
+        caches[j]["k"][i, :, :, :k.shape[2]] = k
+        caches[j]["v"][i, :, :, :v.shape[2]] = v
+    return caches
+
+
+def phase_cp_decode(gen) -> list:
+    """The context-parallel decode step on four gloo ranks that share the
+    card, a (data, model) = (CP_SIZE, CP_TP) mesh whose data axis cuts the
+    KV cache along the sequence: llama3_8b at full width with TP_LAYERS
+    layers, bf16.  The single device prefills a CP_PROMPT prompt into caches
+    of CP_MAX_LEN positions (``prefill_caches``, reference path); each
+    rank keeps its (head, sequence) shard and decodes CP_STEPS tokens from
+    position CP_PROMPT[1], the owning shard writing each one, and the
+    shards' softmax parts merged over the data axis.  Every step's vocab
+    shard of the logits is held to the single-device ``decode_step`` from
+    the same caches.  Long-context serving sends this traffic: one
+    request's KV cache split along the sequence over devices."""
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=TP_LAYERS)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
+    prompt = torch.randint(0, cfg.vocab, CP_PROMPT, generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (CP_PROMPT[0], CP_STEPS), generator=gen,
+                           device="cuda").cpu()
+    with torch.inference_mode():
+        model = Model(cfg, impl="reference", device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        t0 = time.perf_counter()
+        caches = prefill_caches(model, params, prompt, CP_MAX_LEN)
+        prefill_s = _sync_s(t0)
+        host = tree_map(lambda t: t.cpu(), caches)
+        steps = []
+        t0 = time.perf_counter()
+        for t in range(CP_STEPS):
+            pos = torch.tensor(CP_PROMPT[1] + t, dtype=torch.int64).cuda()
+            logits, caches = model.decode_step(params, tokens[:, t].cuda(), caches, pos)
+            steps.append(logits.float())
+        single_ms = _sync_s(t0) * 1e3 / CP_STEPS
+        ref = torch.stack(steps)
+        del params, caches, model
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spmd.run(cp_rank, CP_TP * CP_SIZE, (cfg, seed, tokens, host), timeout=600)
+    seconds = time.perf_counter() - t0
+    v = cfg.vocab_p // CP_TP
+    s_loc = CP_MAX_LEN // CP_SIZE
+    checks = [{"data": r["data"], "model": r["model"], **logit_check(
+        f"cp_decode rank {i} vs single device", r["logits"].cuda(),
+        ref[..., r["model"] * v:(r["model"] + 1) * v], TP_LOGIT_BOUNDS)}
+        for i, r in enumerate(ranks)]
+    launches = [r["launches"] for r in ranks]
+    emit("cp_decode", arch=cfg.name, tp=CP_TP, cp=CP_SIZE, layers=TP_LAYERS,
+         max_len=CP_MAX_LEN, positions_per_rank=s_loc, prompt=list(CP_PROMPT),
+         steps=CP_STEPS, write_shard_by_step=[(CP_PROMPT[1] + t) // s_loc
+                                              for t in range(CP_STEPS)],
+         dtype=cfg.dtype, backend="gloo", single_device_prefill_s=prefill_s,
+         single_device_ms_per_step=single_ms,
+         ms_per_step_per_rank=[r["ms"] for r in ranks], launches_per_rank=launches,
+         seconds=seconds, per_rank=checks)
+    if sorted((c["data"], c["model"]) for c in checks) != [
+            (d, m) for d in range(CP_SIZE) for m in range(CP_TP)]:
+        raise AssertionError(f"the ranks' mesh coordinates: {checks}")
+    want = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    if any(n != want for n in launches):
+        raise AssertionError(f"a rank's CP decode launched {launches}, expected {want}")
+    return launches
+
+
+def dp_grad_rank(rank: int, world: int, cfg, seed: int, tokens: torch.Tensor) -> dict:
+    """One rank of the dp_grad phase's run (runs in a spawned process): the
+    parameters drawn whole from ``seed``, ``spmd.dp_grad`` on this rank's
+    rows (a warm-up call, then one timed with the kernels' counts read
+    around it), then the single device's full-batch gradient from the same
+    parameters, on this rank, and each leaf's error against it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = Model(cfg, impl="reference", device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(seed))
+    model = Model(cfg, ParallelCtx(dp_axis=("data",), dp_size=world), impl="reference",
+                  device="cuda")
+    rows = tokens.shape[0] // world
+    batch = {"tokens": tokens[rank * rows:(rank + 1) * rows].cuda()}
+    spmd.dp_grad(model, params, batch)  # warm-up, its gradients dropped
+    reset_counts()
+    t0 = time.perf_counter()
+    grads = spmd.dp_grad(model, params, batch)
+    ms = _sync_s(t0) * 1e3
+    launches = counts()
+    want = spmd.sum_grads(Model(cfg, impl="reference", device="cuda"), params,
+                          {"tokens": tokens.cuda()})
+    rel = {k: float((g - want_g).abs().max()) / max(float(want_g.abs().max()), 1e-30)
+           for (k, g), want_g in zip(_keyed(grads).items(), tree_leaves(want))}
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    return {"ms": ms, "launches": launches, "rel_err": rel, "finite": finite}
+
+
+def phase_dp_grad_verify(card: str) -> None:
+    """dp-grad's verify part: the port's Session proves Plan.grad(dp=DP_SIZE)
+    for each of DP_GRAD_VERIFY at full width, DP_GRAD_VERIFY_LAYERS layers,
+    seq 8, on the card's host (the gradient traced through
+    ``torch.autograd``, the per-rank side ``spmd.dp_grad``)."""
+    cpu, failed = host_cpu(), []
+    for arch in DP_GRAD_VERIFY:
+        with Session() as session:
+            rep = session.verify(arch, Plan.grad(dp=DP_SIZE, layers=DP_GRAD_VERIFY_LAYERS,
+                                                 seq=8))
+        emit("dp_grad", part="verify", arch=arch, dp=DP_SIZE, layers=DP_GRAD_VERIFY_LAYERS,
+             seq=8,
+             verified=rep.verified, base_nodes=rep.num_base_nodes,
+             dist_nodes=rep.num_dist_nodes, facts=rep.num_facts,
+             trace_s=rep.timings.trace_s, rules_s=rep.timings.rules_s,
+             total_s=rep.elapsed_s, host_cpu=cpu, card=card, torch=torch.__version__,
+             bug_sites=[{"src": b.src, "op": b.op, "category": b.category,
+                         "detail": b.detail[:300]} for b in rep.bug_sites[:3]])
+        if not rep.verified:
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"dp_grad: Plan.grad(dp={DP_SIZE}) not verified for {failed}")
+
+
+def phase_dp_grad_run(gen) -> list:
+    """dp-grad's run part: the proved ``spmd.dp_grad`` on DP_SIZE gloo ranks
+    sharing the card, llama3_8b at full width with DP_GRAD_LAYERS layers,
+    f32, TF32 off, tokens DP_GRAD_TOKENS, a row a rank; each rank's psummed
+    gradient against the single device's full-batch gradient, leaf by leaf,
+    within DP_GRAD_REL (the loss is a sum: no ``1 / dp``)."""
+    cfg = dataclasses.replace(get_config("llama3_8b"), n_layers=DP_GRAD_LAYERS,
+                              dtype="float32")
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda").item())
+    tokens = torch.randint(0, cfg.vocab, DP_GRAD_TOKENS, generator=gen, device="cuda").cpu()
+    t0 = time.perf_counter()
+    ranks = spmd.run(dp_grad_rank, DP_SIZE, (cfg, seed, tokens), timeout=600)
+    seconds = time.perf_counter() - t0
+    launches = [r["launches"] for r in ranks]
+    worst = [max(r["rel_err"].values()) for r in ranks]
+    emit("dp_grad", part="run", arch=cfg.name, dp=DP_SIZE, layers=DP_GRAD_LAYERS,
+         tokens=list(DP_GRAD_TOKENS), dtype=cfg.dtype, backend="gloo",
+         ms_per_rank=[r["ms"] for r in ranks], launches_per_rank=launches,
+         worst_leaf_rel_err_per_rank=worst, tol_rel=DP_GRAD_REL,
+         rel_err_per_rank=[r["rel_err"] for r in ranks], seconds=seconds)
+    if not all(r["finite"] for r in ranks) or max(worst) > DP_GRAD_REL:
+        raise AssertionError(f"dp_grad: a rank's psummed gradient is not the full "
+                             f"batch's: worst leaf errors {worst}")
+    want = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    if any(n != want for n in launches):
+        raise AssertionError(f"a rank's dp_grad launched {launches}, expected {want}")
     return launches
 
 
@@ -1579,27 +1836,40 @@ def tpdp_train_rank(rank: int, world: int, cfg, seed: int, batch: dict,
     variant's step, its kernel counts read around it, the worst delta of
     the rank's updated shards from the same shards of the single-device
     step (read from ``ref_path``), and its moments' and gradient norm's
-    errors from a plain first step (``_first_step_errors``)."""
+    errors from a plain first step (``_first_step_errors``); the SP
+    variant's loss, moments and gradient norm also against the plain TP
+    step's on this rank (``vs_tp_rel_err``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     ref = torch.load(ref_path, mmap=True)
     dp = world // TPDP_TP
     data_group = make_debug_mesh(TPDP_TP, dp, device_type="cpu").get_group("data")
     flags = _zero_flags_from_specs(ref, dp, param_specs(ref))
-    out = {}
-    for variant, tcfg in TPDP_TRAIN_VARIANTS.items():
+    out, tp_step = {}, None
+    for variant, (tcfg, sp) in TPDP_TRAIN_VARIANTS.items():
         reset_counts()
         r = spmd.train_step(rank, world, cfg, seed, [batch], TPDP_TP, tcfg, device="cuda",
-                            grads=True)
+                            sp=sp, grads=not sp)
         launches = counts()
         want = shard_params(ref, param_specs(ref), r["model"], TPDP_TP)
         worst = max(float((a - b).abs().max())
                     for a, b in zip(tree_leaves(r["params"]), tree_leaves(want)))
-        errs = _first_step_errors(r, data_group, dp, tcfg.opt,
-                                  flags if tcfg.zero1 else None)
+        # the SP step is held to the TP step below, which is held to this
+        errs = {} if sp else _first_step_errors(r, data_group, dp, tcfg.opt,
+                                                flags if tcfg.zero1 else None)
         out[variant] = {"data": r["data"], "model": r["model"], "loss": r["losses"][0],
                         "grad_norm": r["metrics"][0]["grad_norm"], "ms": r["ms"][0],
                         "worst_param_delta": worst, "first_step_rel_err": errs,
                         "launches": launches}
+        if variant == "plain":  # the TP step's first loss, norm and moments
+            tp_step = (r["losses"][0], r["metrics"][0]["grad_norm"], r["opt"])
+        elif sp:
+            loss, norm, moments = tp_step
+            out[variant]["vs_tp_rel_err"] = {
+                "loss": abs(r["losses"][0] - loss) / abs(loss),
+                "grad_norm": abs(r["metrics"][0]["grad_norm"] - norm) / norm,
+                "m": _worst_rel(r["opt"]["m"], moments["m"]),
+                "v": _worst_rel(r["opt"]["v"], moments["v"])}
+            tp_step = None
         del r, want
         torch.cuda.empty_cache()
     return out
@@ -1608,9 +1878,11 @@ def tpdp_train_rank(rank: int, world: int, cfg, seed: int, batch: dict,
 def phase_tpdp_train() -> dict:
     """One train step of qwen3_4b (full width, PARITY_LAYERS layers, f32) on
     four gloo ranks sharing the card, a (data, model) = (2, TPDP_TP) mesh,
-    plain and ZeRO-1, each against the single-device step on the card from
-    the same weights and batch, at TPDP_TRAIN_BOUNDS, and each rank's moments
-    and gradient norm against a plain first step, at TPDP_TRAIN_MOMENT_REL."""
+    plain, ZeRO-1 and sequence-parallel, each against the single-device
+    step on the card from the same weights and batch, at TPDP_TRAIN_BOUNDS,
+    and each rank's moments and gradient norm against a plain first step,
+    at TPDP_TRAIN_MOMENT_REL; the SP step's loss, moments and norm also
+    against the TP step's on each rank."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config("qwen3_4b"), n_layers=PARITY_LAYERS,
                               dtype="float32")
@@ -1620,7 +1892,7 @@ def phase_tpdp_train() -> dict:
     model = Model(cfg, impl="reference", device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     t0 = time.perf_counter()
-    params, _, metrics = make_step_fn(model, TPDP_TRAIN_VARIANTS["plain"])(
+    params, _, metrics = make_step_fn(model, TPDP_TRAIN_VARIANTS["plain"][0])(
         params, adamw_init(params), tree_map(lambda t: t.cuda(), batch))
     single_s = _sync_s(t0)
     ref_loss = float(metrics["loss"])
@@ -1645,13 +1917,17 @@ def phase_tpdp_train() -> dict:
         for r in rows:
             rel = abs(r["loss"] - ref_loss) / abs(ref_loss)
             errs = r["first_step_rel_err"]
+            vs_tp = r.get("vs_tp_rel_err", {})
             if not (rel < TPDP_TRAIN_BOUNDS[0] and rel <= TPDP_TRAIN_LOSS_REL
                     and r["worst_param_delta"] < TPDP_TRAIN_BOUNDS[1]
-                    and all(e <= TPDP_TRAIN_MOMENT_REL for e in errs.values())):
+                    and all(e <= TPDP_TRAIN_MOMENT_REL for e in errs.values())
+                    and vs_tp.get("loss", 0.0) <= TPDP_TRAIN_LOSS_REL
+                    and all(e <= TPDP_TRAIN_MOMENT_REL for k, e in vs_tp.items()
+                            if k != "loss")):
                 raise AssertionError(f"tpdp_train {variant}: rank ({r['data']}, "
                                      f"{r['model']}) loss {r['loss']} vs {ref_loss}, "
                                      f"worst param delta {r['worst_param_delta']}, "
-                                     f"first-step errors {errs}")
+                                     f"first-step errors {errs}, against TP {vs_tp}")
     return launches
 
 
@@ -1669,7 +1945,8 @@ def phase_train_launcher() -> None:
     than 0.3 in 40 steps (the JAX reference's
     test_train_verify_gate_and_loss_decreases); 20 steps with checkpoints,
     then a resume to 30 from step 20; ``--zero1 --dp 2`` exits 2 before
-    training."""
+    training; ``--sp`` (the gate proves the sequence-parallel plan, then the
+    ranks train with SP on the card) trains 6 steps and its loss falls."""
     smoke = ["--arch", "qwen3_4b", "--smoke", "--tp", "2", "--dp", "2", "--device", "cuda"]
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = ["--ckpt-dir", tmp, "--ckpt-every", "10", "--skip-verify"]
@@ -1677,6 +1954,7 @@ def phase_train_launcher() -> None:
                            "--lr", "3e-3"], 0),
                 ("checkpoint", [*smoke, "--steps", "20", *ckpt], 0),
                 ("resume", [*smoke, "--steps", "30", "--resume", *ckpt], 0),
+                ("sp", [*smoke, "--sp", "--steps", "6", "--seq", "64", "--batch", "8"], 0),
                 ("zero1", ["--arch", "qwen3_4b", "--smoke", "--zero1", "--dp", "2",
                            "--device", "cuda"], 2)]
         for name, argv, want in runs:
@@ -1690,6 +1968,12 @@ def phase_train_launcher() -> None:
                        and len(losses) > 1 and losses[0] - losses[-1] > 0.3)
             elif name == "checkpoint":
                 ok &= "[ckpt] saved step 20" in out
+            elif name == "sp":
+                ok &= (any(line.startswith("[verify] checking") and "+sp" in line
+                           for line in out)
+                       and any(line.startswith("[verify] VERIFIED") for line in out)
+                       and "[done] 6 steps" in "\n".join(out) and len(losses) > 1
+                       and losses[-1] < losses[0])
             elif name == "resume":
                 ok &= (any(line.startswith("[ckpt] resumed") and line.endswith("at step 20")
                            for line in out) and "[done] 10 steps" in "\n".join(out))
@@ -1758,15 +2042,30 @@ def _leaves(tree):
         yield tree
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run_alone(name: str) -> None:
+    """Build the kernels and run one phase on its own (a planted fault's
+    check of the phase that should catch it); raises if the phase fails."""
+    build.build_all()
+    if name == "verify":
+        phase_verify(card_name())
+    else:
+        globals()[f"phase_{name}"](torch.Generator(device="cuda").manual_seed(SEED))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gen_ssm = torch.Generator(device="cuda").manual_seed(SEED + 1)  # the SSM phases'
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_name()
     with torch.inference_mode():
         phase_device()
         phase_resources()
@@ -1859,11 +2158,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_verify(card)
     phase_campaign()
+    phase_dp_grad_verify(card)
+    dp_grad_launches = phase_dp_grad_run(gen)
     dp_launches = phase_dp_forward(gen)
-    tp_launches = phase_tp_forward(gen)
-    moe_tp_launches = phase_tp_forward(gen, "granite_moe_3b", MOE_TP_LAYERS,
-                                       MOE_BOUNDS["tp"])
+    tp_launches, sp_launches = phase_tp_forward(gen, sp=True)
+    moe_tp_launches, _ = phase_tp_forward(gen, "granite_moe_3b", MOE_TP_LAYERS,
+                                          MOE_BOUNDS["tp"])
     decode_launches = phase_tp_decode(gen)
+    cp_launches = phase_cp_decode(gen)
     tpdp_launches = phase_tpdp_forward(gen)
     pipe_launches = phase_pipeline_forward(gen)
     phase_serve_verified()
@@ -1876,8 +2178,11 @@ def main() -> int:
              "moonshot_v1_16b prefill": moe_launches["moonshot_v1_16b"],
              "dp_forward, each rank": dp_launches,
              "tp_forward, each rank": tp_launches,
+             "sp_forward, each rank": sp_launches,
              "tp_forward granite_moe_3b, each rank": moe_tp_launches,
              "tp_decode, each rank": decode_launches,
+             "cp_decode, each rank": cp_launches,
+             "dp_grad, each rank": dp_grad_launches,
              "tpdp_forward, each rank": tpdp_launches,
              "pipeline_forward, each rank": pipe_launches,
              "train qwen3_4b": train_launches,

@@ -32,20 +32,23 @@
 #                         removed (models/attention.py)
 #   tp_vp_embed_shifted   vp_embed's offset is (rank + 1) * V_loc
 #                         (parallel/collectives.py)
-# Faults in the serving step and in sequence parallelism (caught by the
-# verify phase; the serving fault also by the tp_decode phase, run on its
-# own after chip_smoke.py; SP does not run on the card):
+# Faults in the serving step and in sequence parallelism:
 #   decode_cache_head_offset  under TP a rank writes its new K one head over
 #                         (its heads rolled by one) in the KV cache
-#                         (models/attention.py)
+#                         (models/attention.py); caught by the verify phase,
+#                         and by the tp_decode phase, run on its own after
+#                         chip_smoke.py
 #   sp_gather_wrong_dim   sp_exit gathers along the hidden dim, then
 #                         reshapes to the sequence-gathered shape
-#                         (parallel/ctx.py)
+#                         (parallel/ctx.py); SP runs on the card, so the
+#                         tpdp_train phase's SP step fails it first, then
+#                         the sp_forward and verify phases, each run on its
+#                         own after chip_smoke.py
 # A fault in the data-parallel program (caught by the dp_forward phase):
 #   dp_rank_rows_swapped  each rank runs the forward on the other rank's
 #                         rows of the batch (parallel/spmd.py)
-# A fault in the frontends' entry into SP (caught by the verify phase; SP
-# does not run on the card):
+# A fault in the frontends' entry into SP (caught by the verify phase; no
+# frontend runs SP on the card):
 #   sp_frontend_prev_chunk  each rank takes rank r - 1's chunk of the
 #                         replicated frames or prefix (models/model.py)
 # Faults in the MoE layers (models/mlp.py):
@@ -85,6 +88,17 @@
 #                         data axis' size (train/trainer.py): the gradient
 #                         norm doubles; tpdp_train's first-step check must
 #                         fail
+# Faults in the gradient-sync program and in context-parallel decode:
+#   dp_grad_psum_dropped_rank  spmd.dp_grad returns each rank's gradients
+#                         without their psum over the data axis
+#                         (parallel/spmd.py): the dp_grad phase's verify
+#                         part must find the pair unverified, and its run
+#                         part, run on its own after chip_smoke.py, must
+#                         fail the full-batch gradient check
+#   cp_merge_uncorrected  the flash-decode merge takes every shard's partial
+#                         softmax without rescaling it to the global max
+#                         (corr = 1, models/attention.py); the cp_decode
+#                         phase must fail
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
@@ -94,7 +108,8 @@ ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped \
 tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped \
 sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one \
 pipeline_ring_stalled tpdp_psum_on_data_group train_kernel_path_unguarded \
-loss_label_psum_dropped dp_grad_psum_dropped dp_grad_mean_undivided}
+loss_label_psum_dropped dp_grad_psum_dropped dp_grad_mean_undivided \
+dp_grad_psum_dropped_rank cp_merge_uncorrected}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
@@ -151,7 +166,7 @@ for name in $faults; do
       old='cache["k"].index_copy_(2, write_at, knew)'
       new='cache["k"].index_copy_(2, write_at, knew.roll(1, 1) if ctx.tp_axis else knew)' ;;
     sp_gather_wrong_dim)
-      file=parallel/ctx.py phase=verify alone=
+      file=parallel/ctx.py phase=tpdp_train alone="sp_forward verify"
       old='return self.gather_tp(x, seq_axis)'
       new='return self.gather_tp(x, -1).reshape(*x.shape[:seq_axis], -1, x.shape[-1])' ;;
     dp_rank_rows_swapped)
@@ -207,6 +222,14 @@ for name in $faults; do
       file=train/trainer.py phase=tpdp_train alone=
       old='grads = tree_map(lambda g: g / ctx.dp_size, grads)'
       new='grads = tree_map(lambda g: g / 1, grads)' ;;
+    dp_grad_psum_dropped_rank)
+      file=parallel/spmd.py phase=dp_grad alone=dp_grad_run
+      old='return tree_map(model.ctx.psum_dp, grads)'
+      new='return grads' ;;
+    cp_merge_uncorrected)
+      file=models/attention.py phase=cp_decode alone=
+      old='corr = torch.exp(m - m_g)'
+      new='corr = torch.ones_like(m)' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name
@@ -239,14 +262,13 @@ PY
   [ -n "$file2" ] && diff "$root/$file2" "$dir/$file2" | grep '^>'
   grep -E "\"(kernel )?$phase\"" "$out/fault_$name.txt" | cut -c 1-600
   grep -a -o -m 1 -E "[A-Za-z]*Error: .{0,400}" "$out/fault_$name.txt"
-  if [ -n "$alone" ]; then  # the TP phase that runs this program, on its own
+  for a in $alone; do  # each phase that runs this program, on its own
     (cd "$dir" && timeout 600 python3 -c "
-import sys, torch, chip_smoke as cs
-cs.build.build_all()
-sys.exit(cs.phase_$alone(torch.Generator(device='cuda').manual_seed(cs.SEED)) is None)
-") > "$out/fault_${name}_$alone.txt" 2>&1
-    echo "$name: $alone phase alone exit $?"
-    grep -E "\"$alone\"" "$out/fault_${name}_$alone.txt" | cut -c 1-600
-    grep -a -o -m 1 -E "[A-Za-z]*Error: .{0,400}" "$out/fault_${name}_$alone.txt"
-  fi
+import chip_smoke as cs
+cs.run_alone('$a')
+") > "$out/fault_${name}_$a.txt" 2>&1
+    echo "$name: $a phase alone exit $?"
+    grep -E "\"${a%_run}\"" "$out/fault_${name}_$a.txt" | cut -c 1-600
+    grep -a -o -m 1 -E "[A-Za-z]*Error: .{0,400}" "$out/fault_${name}_$a.txt"
+  done
 done

@@ -22,6 +22,17 @@ so the same rules verify both:
   chains of ``unsqueeze``);
 * the program is traced functionalized: in-place writes to its inputs
   (a serving step's caches) become outputs;
+* a program that differentiates with ``torch.autograd`` (``grad=True``) is
+  traced as it runs, without functionalize: ``repro_torch::dot_general``
+  differentiates by ``lax.dot_general``'s transpose rules (its cotangents
+  are ``dot_general``s), the backward pass's in-place ops take their
+  functional forms, each backward op takes the source and scope of the
+  forward call whose autograd node it runs in, and ATen's
+  backward ops lower as JAX transposes their forward ops
+  (``select_backward``/``slice_backward`` as a zero ``pad``,
+  ``silu_backward``, ``gelu_backward`` and ``softplus_backward`` as the
+  transposed JVP chains, a row lookup's ``index_put`` as ``scatter_add``,
+  ``flip(cumsum(flip))`` as a reverse ``cumsum``);
 * Python scalars become hash-consed ``const`` leaves; scalar int
   arithmetic on constants folds at trace time;
 * the functional collectives become ``all_reduce``/``all_gather``/
@@ -124,14 +135,33 @@ _PLUMBING = {os.path.abspath(__file__), os.path.join(_PKG_DIR, "tree.py"),
              os.path.join(_PKG_DIR, "scope.py")}
 
 
+
 def _user_src(frame) -> str:
     while frame is not None:
         f = frame.f_code.co_filename
         if not (f.startswith((_TORCH_DIR, _STDLIB_DIR, "<")) or f in _PLUMBING
                 or frame.f_code in (einsum_f32.__code__, silu.__code__)):  # caller's line
-            return f"{f.rsplit('/', 1)[-1]}:{frame.f_lineno}"
+            outer = _marked_caller(frame)
+            if outer is None:
+                return f"{f.rsplit('/', 1)[-1]}:{frame.f_lineno}"
+            frame = outer
+            continue
         frame = frame.f_back
     return ""
+
+
+def _marked_caller(frame):
+    """The caller of a function marked to report its caller's line
+    (``parallel.ctx.CALLER_LINE_CODES``) that ``frame`` runs inside, within
+    ``frame``'s file, or None."""
+    from repro_torch.parallel.ctx import CALLER_LINE_CODES
+
+    f = frame.f_code.co_filename
+    while frame is not None and frame.f_code.co_filename == f:
+        if frame.f_code in CALLER_LINE_CODES:
+            return frame.f_back
+        frame = frame.f_back
+    return None
 
 
 # functionalize cannot take ATen's in-place operator ops (``__iand__``'s
@@ -156,9 +186,24 @@ class _SourceMode(TorchFunctionMode):
     ``dot_general`` per pair of operands (a sharded head dim merged with
     the batch dim is no split/merge layout)."""
 
+    def __init__(self, grad: bool = False):
+        super().__init__()
+        self.grad = grad
+        self._hooked: set = set()
+        self._saved_meta: Optional[dict] = None  # set while a backward pass runs
+
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        fx_traceback.set_stack_trace([_user_src(sys._getframe(1))])
         func = _INPLACE_OPERATORS.get(func, func)
+        if self._saved_meta is not None:  # a backward op keeps its forward op's meta
+            return self._call(func, args, kwargs)
+        src = [_user_src(sys._getframe(1))]
+        fx_traceback.set_stack_trace(src)
+        out = self._call(func, args, kwargs)
+        if self.grad:
+            self._hook_backward(out, src)
+        return out
+
+    def _call(self, func, args, kwargs):
         if func is silu:  # the model's jax.nn.silu: logistic and mul
             return torch.nn.functional.silu(*args)
         if func in (torch.einsum, einsum_f32) and not kwargs:
@@ -170,6 +215,52 @@ class _SourceMode(TorchFunctionMode):
             # folds the leading dims into rows (reshape, mm, reshape)
             return _dot_general(args[0], args[1], [args[0].ndim - 1], [0], [], [], False)
         return func(*args, **(kwargs or {}))
+
+    # -- the backward pass: each autograd node's ops take its forward op's meta
+    def _hook_backward(self, out, src: list) -> None:
+        """A pre-hook on each autograd node that the call just made (those
+        behind ``out`` not hooked yet): the fx nodes its backward creates
+        (and the accumulation of what it returns) take the call's
+        ``file:line`` and scope, as AOTAutograd's stack-trace preservation
+        hooks carry the forward's traceback."""
+        custom = fx_traceback.current_meta.get("custom")
+        meta = (src, dict(custom) if custom is not None else None)
+        todo = [t.grad_fn for t in tree_leaves(out)
+                if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+        while todo:
+            fn = todo.pop()
+            if fn is None or fn in self._hooked:
+                continue
+            self._hooked.add(fn)
+            fn.register_prehook(self._prehook(meta))
+            todo.extend(f for f, _ in fn.next_functions)
+
+    def _prehook(self, meta: tuple):
+        src, custom = meta
+
+        def hook(grad_outputs):
+            current = fx_traceback.current_meta
+            if self._saved_meta is None:  # the first node of a backward pass
+                self._saved_meta = {k: current[k] for k in _BACKWARD_META if k in current}
+                torch.autograd.Variable._execution_engine.queue_callback(
+                    self._end_backward)
+            fx_traceback.set_stack_trace(src)
+            if custom is None:
+                current.pop("custom", None)
+            else:
+                current["custom"] = dict(custom)
+        return hook
+
+    def _end_backward(self) -> None:
+        current = fx_traceback.current_meta
+        for k in _BACKWARD_META:
+            current.pop(k, None)
+        current.update(self._saved_meta)
+        self._saved_meta = None
+
+
+# the fx meta a backward pass sets on the nodes it creates
+_BACKWARD_META = ("stack_trace", "custom")
 
 
 @torch.library.custom_op("repro_torch::dot_general", mutates_args=())
@@ -200,6 +291,50 @@ def _dot_general_fake(lhs, rhs, lhs_contract, rhs_contract, lhs_batch, rhs_batch
              + [s for j, s in enumerate(rhs.shape) if j not in rhs_contract + rhs_batch])
     return lhs.new_empty(shape, dtype=torch.float32 if f32
                          else torch.promote_types(lhs.dtype, rhs.dtype))
+
+
+def _dot_general_transpose(g, x, y, x_contract, y_contract, x_batch, y_batch, f32,
+                           swap: bool):
+    """The cotangent of ``x`` in ``dot_general(x, y)`` (of ``y`` with
+    ``swap``, the operands and their dimension numbers exchanged), as
+    ``lax._dot_general_transpose_lhs`` forms it: one ``dot_general`` of
+    ``g`` with ``y``, a ``transpose`` back to ``x``'s dim order and a
+    ``convert`` to ``x``'s dtype where they differ."""
+    skip = set(x_contract) | set(x_batch)
+    x_kept = [i for i in range(x.ndim) if i not in skip]
+    skip = set(y_contract) | set(y_batch)
+    y_kept = [i for i in range(y.ndim) if i not in skip]
+    nb = len(x_batch)
+    start = nb if swap else nb + len(x_kept)
+    ans_y = list(range(start, start + len(y_kept)))
+    by_y = [x_contract[i] for i in sorted(range(len(y_contract)), key=y_contract.__getitem__)]
+    unsorted = list(x_batch) + x_kept + by_y
+    out = _dot_general(g, y, ans_y, y_kept, list(range(nb)), list(y_batch), f32)
+    out = out.permute(sorted(range(len(unsorted)), key=unsorted.__getitem__))
+    return out if out.dtype == x.dtype else out.to(x.dtype)
+
+
+def _dot_general_setup(ctx, inputs, output):
+    lhs, rhs, *dims = inputs
+    ctx.save_for_backward(lhs, rhs)
+    ctx.dims = dims
+
+
+def _dot_general_backward(ctx, g):
+    """``lax.dot_general``'s transpose rules: both cotangents are
+    ``dot_general``s, so a traced backward's products are ``dot`` nodes
+    as JAX's are."""
+    lhs, rhs = ctx.saved_tensors
+    lc, rc, lb, rb, f32 = ctx.dims
+    gl = gr = None
+    if ctx.needs_input_grad[0]:
+        gl = _dot_general_transpose(g, lhs, rhs, lc, rc, lb, rb, f32, swap=False)
+    if ctx.needs_input_grad[1]:
+        gr = _dot_general_transpose(g, rhs, lhs, rc, lc, rb, lb, f32, swap=True)
+    return gl, gr, None, None, None, None, None
+
+
+_dot_general.register_autograd(_dot_general_backward, setup_context=_dot_general_setup)
 
 
 def _einsum_path(inputs: list[str], output: str, sizes: dict) -> list[tuple]:
@@ -422,6 +557,11 @@ class Tracer:
         self._const_cache: dict[tuple, int] = {}
         self._ctx = ("", "", None)  # src, scope, layer of the node being lowered
         self._c10d = _c10d_ops()
+        # silu's input -> its logistic, the residual silu's backward reuses;
+        # the tanh gelu's input -> its tanh and cdf; softplus' -> its value
+        self._logistic: dict[int, int] = {}
+        self._gelu: dict[int, tuple] = {}
+        self._softplus_out: dict[int, int] = {}
 
     # -- leaves ---------------------------------------------------------------
     def add_const(self, arr: np.ndarray, dtype: str) -> int:
@@ -616,8 +756,24 @@ class Tracer:
             return self.emit("select", [c, b, a], shape, dtype)
         if packet is _A.silu:
             x = args[0]
-            lg = self.emit("logistic", [x], shape, dtype)
+            lg = self._logistic[x] = self.emit("logistic", [x], shape, dtype)
             return self.emit("mul", [x, lg], shape, dtype)
+        if packet is _A.silu_backward:
+            return self._silu_backward(args[0], args[1], shape, dtype)
+        if packet is _A.masked_fill:  # jnp.where(mask, value, x), value a weak scalar
+            c = self.broadcast_to(args[1], shape)
+            v = args[2] if isinstance(args[2], Ref) else self.weak_scalar(args[2], dtype)
+            v = self.broadcast_to(v, shape)
+            return self.emit("select", [c, args[0], v], shape, dtype)
+        if packet is _A.select_backward:  # the transpose of x[i]
+            return self._select_backward(args, shape, dtype)
+        if packet is _A.slice_backward:  # the transpose of lax.slice
+            _, _, dim, start, end, step = args
+            n = shape[dim % len(shape)]
+            start, end = _norm(start, n), _norm(end, n)
+            return self._pad_zeros(args[0], dim % len(shape), start,
+                                   n - start - (self.g[args[0]].shape[dim] - 1) * step - 1,
+                                   step - 1, shape, dtype)
         if packet is _A.relu:
             return self.emit("max", [args[0], self.scalar(0, dtype)], shape, dtype)
         if packet is _A.index_copy and self.g[args[2]].shape in ((), (1,)):
@@ -626,14 +782,22 @@ class Tracer:
             return self.broadcast_to(self.convert(args[1], dtype), shape)
         if packet is _A.softplus and tuple(args[1:]) in ((), (1, 20)):
             return self._softplus(args[0], shape, dtype)
+        if packet is _A.softplus_backward and tuple(args[2:]) == (1, 20):
+            return self._softplus_backward(args[0], args[1], shape, dtype)
         if packet is _A.gelu and kwargs.get("approximate", "none") == "tanh":
             return self._gelu_tanh(args[0], shape, dtype)
+        if packet is _A.gelu_backward and kwargs.get("approximate", "none") == "tanh":
+            return self._gelu_tanh_backward(args[0], args[1], shape, dtype)
+        if packet is _A.flip:  # lax.rev
+            return self.emit("rev", [args[0]], shape, dtype,
+                             {"dimensions": tuple(sorted(d % len(shape) for d in args[1]))})
         if packet is _A.constant_pad_nd:
             return self._pad(args, shape, dtype)
         if packet is _A.cumsum:
             x = self.convert(args[0], dtype)
             return self.emit("cumsum", [x], shape, dtype,
-                             {"axis": args[1] % len(shape), "reverse": False})
+                             {"axis": args[1] % len(shape),
+                              "reverse": node.meta.get("reverse", False)})
         if packet is _A.clamp:  # jnp.clip: max(lo, x), then min(hi, .)
             x = args[0]
             lo = args[1] if len(args) > 1 else kwargs.get("min")
@@ -849,6 +1013,8 @@ class Tracer:
         ``scatter_add`` of one element per row; None for other forms."""
         x, indices, upd = args[0], args[1], args[2]
         n = self.g[x]
+        if len(indices) == 1 and indices[0] is not None:
+            return self._take_transpose(x, indices[0], upd, shape, dtype)
         if (len(indices) != len(n.shape) or any(i is None for i in indices)
                 or len({self.g[i].shape for i in indices}) != 1
                 or len(self.g[indices[0]].shape) != 1
@@ -875,6 +1041,62 @@ class Tracer:
                           "slice_sizes": (), "unique_indices": False,
                           "update_consts": ()})
 
+    def _take_transpose(self, x, idx, upd, shape, dtype):
+        """``zeros.at[idx].add(u)`` along dim 0 as JAX transposes
+        ``jnp.take(table, idx, axis=0)`` (an embedding's gradient): the
+        indices given a trailing index-vector dim (a ``broadcast``) and one
+        ``scatter_add`` with the gather's dimension numbers; None unless
+        ``u`` is ``idx``'s shape followed by a row of ``x``."""
+        ishape, rows = self.g[idx].shape, self.g[x].shape[1:]
+        if self.g[upd].shape != ishape + rows:
+            return None
+        k = len(ishape)
+        iv = self.emit("broadcast", [idx], ishape + (1,), self.g[idx].dtype,
+                       {"shape": ishape + (1,), "broadcast_dimensions": tuple(range(k))})
+        window = tuple(range(k, k + len(rows)))
+        dn = (f"ScatterDimensionNumbers(update_window_dims={window}, "
+              f"inserted_window_dims=(0,), scatter_dims_to_operand_dims=(0,), "
+              f"operand_batching_dims=(), scatter_indices_batching_dims=())")
+        return self.emit("scatter_add", [x, iv, self.convert(upd, dtype)], shape, dtype,
+                         {"dimension_numbers": dn, "indices_are_sorted": False,
+                          "slice_sizes": (), "unique_indices": False,
+                          "update_consts": ()})
+
+    def _silu_backward(self, ct, x, shape, dtype):
+        """The transpose of ``jax.nn.silu``'s JVP, ``x * s`` with ``s =
+        logistic(x)`` and ``ds = dx * (s * (1 - s))``: ``ct * s + (x * ct) *
+        (s * (1 - s))``, each step in x's dtype, ``s`` the forward's
+        (a residual) where the trace has it."""
+        s = self._logistic.get(x)
+        if s is None:
+            s = self.emit("logistic", [x], shape, dtype)
+        r = self.emit("mul", [s, self.emit("sub", [self.scalar(1, dtype), s], shape, dtype)],
+                      shape, dtype)
+        a = self.emit("mul", [ct, s], shape, dtype)
+        b = self.emit("mul", [x, ct], shape, dtype)
+        return self.emit("add", [a, self.emit("mul", [b, r], shape, dtype)], shape, dtype)
+
+    def _pad_zeros(self, x, dim: int, lo: int, hi: int, interior: int, shape, dtype):
+        """lax's transpose of a static slice along ``dim``: one ``pad`` of
+        the cotangent with a zero of its dtype."""
+        config = [(0, 0, 0)] * len(shape)
+        config[dim] = (lo, hi, interior)
+        return self.emit("pad", [x, self.scalar(0, dtype)], shape, dtype,
+                         {"padding_config": tuple(config)})
+
+    def _select_backward(self, args, shape, dtype):
+        """The transpose of ``x[i]`` (``lax.index_in_dim``'s slice, then its
+        squeeze): the unit dim back (``expand_dims``, a ``broadcast``), then
+        zeros padded around it."""
+        g, _, dim, i = args
+        dim = dim % len(shape)
+        i = i % shape[dim]
+        unit = shape[:dim] + (1,) + shape[dim + 1:]
+        b = self.emit("broadcast", [g], unit, dtype,
+                      {"shape": unit, "broadcast_dimensions":
+                       tuple(d for d in range(len(shape)) if d != dim)})
+        return self._pad_zeros(b, dim, i, shape[dim] - i - 1, 0, shape, dtype)
+
     def _softplus(self, x, shape, dtype):
         """``jax.nn.softplus``: ``logaddexp(x, 0)``, whose jnp lowering is
         ``select(isnan(x - 0), max(x, 0) + log1p(exp(-|x - 0|)), x + 0)``
@@ -888,19 +1110,62 @@ class Tracer:
         for op in ("neg", "exp", "log1p"):
             t = self.emit(op, [t], shape, dtype)
         out = self.emit("add", [amax, t], shape, dtype)
-        return self.emit("select", [isnan, out, both], shape, dtype)
+        self._softplus_out[x] = self.emit("select", [isnan, out, both], shape, dtype)
+        return self._softplus_out[x]
+
+    def _softplus_backward(self, ct, x, shape, dtype):
+        """``logaddexp``'s JVP in ``jax.nn.softplus``: ``ct * exp(x' -
+        y')``, ``y`` the forward's value and each of ``x``, ``y`` with +inf
+        replaced by 0 (``_replace_inf``)."""
+        y = self._softplus_out.get(x)
+        if y is None:
+            y = self._softplus(x, shape, dtype)
+        inf = self.scalar(math.inf, dtype)
+        xs, ys = (self.emit("select", [self.emit("eq", [v, inf], shape, torch.bool), v,
+                                       self.broadcast_to(self.scalar(0.0, dtype), shape)],
+                            shape, dtype) for v in (x, y))
+        c = self.emit("exp", [self.emit("sub", [xs, ys], shape, dtype)], shape, dtype)
+        return self.emit("mul", [ct, c], shape, dtype)
 
     def _gelu_tanh(self, x, shape, dtype):
         """``jax.nn.gelu`` (``approximate=True``): ``x * (0.5 * (1 + tanh(
         sqrt(2/pi) * (x + 0.044715 * x**3))))``, the constants in x's dtype."""
-        cube = self.emit("integer_pow", [x], shape, dtype, {"y": 3})
-        t = self.emit("mul", [self.scalar(0.044715, dtype), cube], shape, dtype)
-        t = self.emit("add", [x, t], shape, dtype)
-        t = self.emit("mul", [self.scalar(math.sqrt(2 / math.pi), dtype), t], shape, dtype)
-        t = self.emit("tanh", [t], shape, dtype)
-        t = self.emit("add", [self.scalar(1.0, dtype), t], shape, dtype)
-        t = self.emit("mul", [self.scalar(0.5, dtype), t], shape, dtype)
-        return self.emit("mul", [x, t], shape, dtype)
+        th, cdf = self._gelu_residuals(x, shape, dtype)
+        return self.emit("mul", [x, cdf], shape, dtype)
+
+    def _gelu_residuals(self, x, shape, dtype):
+        """The tanh and the cdf of ``jax.nn.gelu(x, approximate=True)``,
+        emitted once per ``x`` (its backward reuses them, as JAX's
+        linearization keeps them)."""
+        if x not in self._gelu:
+            cube = self.emit("integer_pow", [x], shape, dtype, {"y": 3})
+            t = self.emit("mul", [self.scalar(0.044715, dtype), cube], shape, dtype)
+            t = self.emit("add", [x, t], shape, dtype)
+            t = self.emit("mul", [self.scalar(math.sqrt(2 / math.pi), dtype), t], shape,
+                          dtype)
+            th = self.emit("tanh", [t], shape, dtype)
+            t = self.emit("add", [self.scalar(1.0, dtype), th], shape, dtype)
+            self._gelu[x] = th, self.emit("mul", [self.scalar(0.5, dtype), t], shape, dtype)
+        return self._gelu[x]
+
+    def _gelu_tanh_backward(self, ct, x, shape, dtype):
+        """The transpose of the tanh ``jax.nn.gelu``'s JVP, op for op as
+        JAX's backward pass forms it (``tanh``'s JVP ``(g + g * t) * (1 -
+        t)``, ``integer_pow``'s ``g * (3 * x**2)``)."""
+        th, cdf = self._gelu_residuals(x, shape, dtype)
+
+        def mul(a, b):
+            return self.emit("mul", [a, b], shape, dtype)
+
+        def add(a, b):
+            return self.emit("add", [a, b], shape, dtype)
+
+        u = mul(mul(self.scalar(0.5, dtype), mul(x, ct)),
+                self.emit("sub", [self.scalar(1.0, dtype), th], shape, dtype))
+        t2 = mul(self.scalar(math.sqrt(2 / math.pi), dtype), add(u, mul(u, th)))
+        sq = self.emit("integer_pow", [x], shape, dtype, {"y": 2})
+        t3 = mul(mul(self.scalar(0.044715, dtype), t2), mul(self.scalar(3.0, dtype), sq))
+        return add(add(mul(ct, cdf), t2), t3)
 
     def _pad(self, args, shape, dtype):
         """``jnp.pad`` with a constant: one ``pad`` with a (low, high,
@@ -1067,18 +1332,94 @@ def _lower(gm, name: str, layer_tag_fn, group_axes: Optional[dict] = None,
     return t.g, in_ids, outs
 
 
-def _make_fx(flat_fn, fakes):
+def _make_fx(flat_fn, fakes, grad: bool = False):
     """``flat_fn`` traced functionalized: a program that writes its inputs
     in place (a serving step and its caches) returns what it writes, and a
-    pure program traces as it would unfunctionalized."""
-    from torch.fx.experimental.proxy_tensor import make_fx
-
-    with fx_traceback.preserve_node_meta(), _SourceMode():
-        gm = make_fx(torch.func.functionalize(flat_fn), tracing_mode="fake")(*fakes)
-    _fold_written_views(gm)  # first: it reads views that are dead until it runs
+    pure program traces as it would unfunctionalized.  ``grad``: a pure
+    program that differentiates with ``torch.autograd`` (functionalize
+    cannot take ``requires_grad_``), traced as it runs; the in-place ops of
+    its backward pass become their functional forms, and each backward op
+    takes the source and scope of the forward call it differentiates
+    (``_SourceMode``'s pre-hooks on the autograd nodes)."""
+    gm = _program(flat_fn, fakes, grad)
+    if not grad:
+        _fold_written_views(gm)  # first: it reads views that are dead until it runs
     _fold_collective_dims(gm)
     _fold_jnp_forms(gm)
     return gm
+
+
+def _program(flat_fn, fakes, grad: bool):
+    """The executable fx program of :func:`_make_fx`, before the folds
+    that only the lowering reads."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    with fx_traceback.preserve_node_meta(), _SourceMode(grad=grad):
+        gm = make_fx(flat_fn if grad else torch.func.functionalize(flat_fn),
+                     tracing_mode="fake")(*fakes)
+    if grad:
+        _fold_inplace(gm)
+    return gm
+
+
+def fx_program(fn: Callable, *args, grad: bool = False):
+    """The fx program :func:`trace` lowers, before the folds only the
+    lowering reads: a GraphModule over the flat leaves of ``args`` (tensors
+    or :class:`ShapeDtype`s, traced as fake tensors) that returns the flat
+    leaves of ``fn(*args)`` and runs on real tensors, so a traced program
+    can be held to numbers (the gradient path's in-place folds included).
+    A program with collectives runs in a process of the group it was
+    traced in."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    leaves, treedef = _leaf_shapes(args)
+
+    def flat_fn(*flat):
+        return tree_leaves(fn(*tree_unflatten(treedef, flat)))
+
+    return _program(flat_fn, _fake_inputs(FakeTensorMode(), leaves), grad)
+
+
+def _fold_inplace(gm) -> None:
+    """Each in-place op of a traced backward pass (``masked_fill_`` in
+    ``maximum``'s) as its functional form: fx already maps the later uses
+    of the written tensor to the op's node.  Sound only where nothing reads
+    the memory after the write through another node (a view of the tensor,
+    or the tensor a view of which it is, taken before the write), which is
+    checked."""
+    order = {n: i for i, n in enumerate(gm.graph.nodes)}
+    for node in list(gm.graph.nodes):
+        packet = getattr(node.target, "overloadpacket", None)
+        name = getattr(packet, "__name__", "")
+        if not name.endswith("_") or name.startswith("_"):
+            continue
+        aliases = _aliases(node.args[0])
+        late = [a for a in aliases if a.op == "placeholder"
+                or any(order[u] > order[node] for u in a.users if u is not node)]
+        if late:
+            raise NotImplementedError(f"{node.target} writes a tensor read after it "
+                                      f"({late[0].name}); only fresh values fold")
+        node.target = getattr(getattr(_A, name[:-1]), node.target._overloadname)
+    gm.recompile()
+
+
+def _is_view(node) -> bool:
+    return node.op == "call_function" and getattr(node.target, "is_view", False)
+
+
+def _aliases(node) -> list:
+    """The nodes that share ``node``'s memory: the views it was taken from
+    and the views taken of any of them, transitively."""
+    seen, todo = [], [node]
+    while todo:
+        n = todo.pop()
+        if n in seen:
+            continue
+        seen.append(n)
+        if _is_view(n):
+            todo.append(n.args[0])
+        todo.extend(u for u in n.users if _is_view(u))
+    return seen
 
 
 def _fold_jnp_forms(gm) -> None:
@@ -1090,7 +1431,10 @@ def _fold_jnp_forms(gm) -> None:
     * ``x[:, None, None]`` is one ``unsqueeze`` per new dim in ATen and one
       ``lax.expand_dims`` (a ``broadcast_in_dim``) in jnp: the last
       unsqueeze of a chain takes the chain's input and every inserted dim
-      (its meta ``inserted``).
+      (its meta ``inserted``);
+    * ``flip(cumsum(flip(x, d), d), d)``, ATen's backward of a cumsum, is
+      one ``cumsum(x, d, reverse=True)``, lax's transpose of it (its meta
+      ``reverse``).
     """
     graph = gm.graph
     for node in list(graph.nodes):
@@ -1110,6 +1454,17 @@ def _fold_jnp_forms(gm) -> None:
                 dims = inner.meta.get("inserted", [inner.args[1] % inner.meta["val"].dim()])
                 node.meta["inserted"] = sorted([d] + [i + (i >= d) for i in dims])
                 node.args = (inner.args[0], d)
+        elif node.target is _A.flip.default and len(node.args[1]) == 1:
+            cs = node.args[0]
+            d = node.args[1][0] % node.meta["val"].dim()
+            if (cs.target is _A.cumsum.default and len(cs.users) == 1
+                    and cs.args[1] % node.meta["val"].dim() == d
+                    and cs.args[0].target is _A.flip.default
+                    and len(cs.args[0].users) == 1
+                    and [a % node.meta["val"].dim() for a in cs.args[0].args[1]] == [d]):
+                cs.meta["reverse"] = True
+                cs.args = (cs.args[0].args[0],) + tuple(cs.args[1:])
+                node.replace_all_uses_with(cs)
     graph.eliminate_dead_code()
     gm.recompile()
 
@@ -1273,6 +1628,7 @@ def trace(
     *args,
     layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
     name: str = "graph",
+    grad: bool = False,
 ) -> tuple[Graph, list[int], list[int]]:
     """Trace ``fn(*args)`` to a TensorIR Graph.
 
@@ -1281,7 +1637,8 @@ def trace(
     in :func:`repro_torch.tree.tree_flatten` order (register sharding facts
     against these).  ``fn`` may write its inputs in place and return them
     (a serving step and its caches): it is traced functionalized, so what
-    it writes is what its outputs compute.
+    it writes is what its outputs compute.  ``grad``: ``fn`` differentiates
+    with ``torch.autograd`` (the gradient path of :func:`_make_fx`).
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -1291,7 +1648,7 @@ def trace(
     def flat_fn(*flat):
         return tree_leaves(fn(*tree_unflatten(treedef, flat)))
 
-    gm = _make_fx(flat_fn, fakes)
+    gm = _make_fx(flat_fn, fakes, grad)
     return _lower(gm, name, layer_tag_fn)
 
 
@@ -1319,6 +1676,7 @@ def trace_sharded(
     axis: str = "model",
     layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
     name: str = "dist",
+    grad: bool = False,
 ) -> tuple[Graph, list[int], list[int]]:
     """Trace the **per-rank** program of a sharded function, with its
     collectives explicit.
@@ -1333,7 +1691,8 @@ def trace_sharded(
     ``axis_index`` over its axis; each collective carries the axis of the
     group it runs on.  ``args`` are *global* shapes; ``in_specs`` holds one
     spec tree per argument, and each input node carries the per-rank shape
-    its spec gives over every axis.  In-place writes as in :func:`trace`.
+    its spec gives over every axis.  In-place writes and ``grad`` as in
+    :func:`trace`.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -1368,5 +1727,5 @@ def trace_sharded(
                 ctx = ParallelCtx.from_mesh(dmesh, ranks=dict(zip(rank_axes, ranks)))
             return tree_leaves(fn(ctx, *tree_unflatten(treedef, flat)))
 
-        gm = _make_fx(flat_fn, fakes)
+        gm = _make_fx(flat_fn, fakes, grad)
     return _lower(gm, name, layer_tag_fn, group_axes, rank_axes)

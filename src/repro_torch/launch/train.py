@@ -2,9 +2,9 @@
 
 Flow, as in ``python -m repro.launch.train``:
   1. VERIFY: for ``--tp > 1`` or ``--dp > 1``, the port's ``Session`` proves
-     the launch's plan (TP forward and, for archs without experts, DP
-     batch sharding) on the host before any weight is drawn; an unverified
-     plan exits 2.
+     the launch's plan (TP forward, sequence-parallel with ``--sp``, and,
+     for archs without experts, DP batch sharding) on the host before any
+     weight is drawn; an unverified plan exits 2.
   2. TRAIN: ``--tp 1 --dp 1`` trains in this process on ``--device``;
      otherwise ``tp x dp`` gloo ranks (``parallel.spmd.run``) each run the
      train step of their (data, model) mesh coordinate, on the card (the
@@ -12,17 +12,17 @@ Flow, as in ``python -m repro.launch.train``:
      leaves and resumable data.  Rank 0's log is printed when the ranks end.
 
 The flags are the JAX launcher's plus ``--device`` (default ``cuda``; the
-run raises when no GPU is present unless ``--device cpu`` is given).  Two
-launches are refused with exit 2 before any weight is drawn: ``--zero1``
-with ``--dp > 1``, where the JAX launcher crashes (it builds full-size
-moments under the param specs, and ``zero1_update`` meets scattered shards:
-"add got incompatible shapes"; ``zero1_update`` itself is ported and
-tested), and ``--sp`` on the card: SP's sequence gathers and scatters of
-CUDA tensors go through a host copy, and no card run holds that path yet
-(it runs, and is tested, on CPU ranks).
+run raises when no GPU is present unless ``--device cpu`` is given).  One
+launch is refused with exit 2 before any weight is drawn: ``--zero1`` with
+``--dp > 1``, where the JAX launcher crashes (it builds full-size moments
+under the param specs, and ``zero1_update`` meets scattered shards: "add
+got incompatible shapes"; ``zero1_update`` itself is ported and tested).
+``--sp`` runs on the card as on CPU ranks: its sequence gathers and
+scatters of CUDA tensors go through a host copy (``ParallelCtx``).
 
 Usage:
   python -m repro_torch.launch.train --arch qwen3_4b --smoke --steps 40 --tp 2 --dp 2
+  python -m repro_torch.launch.train --arch qwen3_4b --smoke --tp 2 --dp 2 --sp
   python -m repro_torch.launch.train --arch qwen3_4b --smoke --device cpu
 """
 from __future__ import annotations
@@ -147,10 +147,6 @@ def main(argv=None) -> int:
               "zero1_update's scattered shards: 'add got incompatible shapes'); "
               "a fix changes both packages")
         return 2
-    if args.sp and dev.type == "cuda":
-        print("[train] REFUSED: --sp on the card: SP's sequence gathers and scatters "
-              "of CUDA tensors go through a host copy that no card run holds yet")
-        return 2
 
     # ---- 1. verification gate (paper technique) -------------------------------
     if not args.skip_verify and (args.tp > 1 or args.dp > 1):
@@ -158,7 +154,7 @@ def main(argv=None) -> int:
 
         dp_gate = args.dp if args.dp > 1 and cfg.n_experts == 0 else 1
         try:
-            plan = Plan(tp=args.tp, dp=dp_gate,
+            plan = Plan(tp=args.tp, dp=dp_gate, sp=args.sp and args.tp > 1,
                         layers=min(cfg.n_layers, 4), seq=32, smoke=args.smoke)
         except PlanError:
             plan = None  # tp=1 and dp gate skipped: nothing to verify

@@ -101,8 +101,10 @@ def chunked_attention(
 
 
 def attn_fwd(cfg, ctx: ParallelCtx, p, x, positions, *, impl: str = "reference",
-             unroll: bool = False):
-    """Full-sequence attention (train / prefill).  x: (B, S, D)."""
+             unroll: bool = False, kv_out: Optional[list] = None):
+    """Full-sequence attention (train / prefill).  x: (B, S, D).  ``kv_out``:
+    a list the layer's K and V (B, Hkv, S, hd), after RoPE, are appended to
+    (``Model.forward``'s)."""
     B, S, _ = x.shape
     hd = cfg.hd
     q = linear(p["wq"], x)
@@ -118,6 +120,8 @@ def attn_fwd(cfg, ctx: ParallelCtx, p, x, positions, *, impl: str = "reference",
         k = rmsnorm(p["knorm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+    if kv_out is not None:
+        kv_out.append((k, v))
     if impl == "kernel":
         out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=cfg.causal)
@@ -130,7 +134,9 @@ def attn_fwd(cfg, ctx: ParallelCtx, p, x, positions, *, impl: str = "reference",
 
 def attn_init_cache(cfg, batch: int, max_len: int, tp_size: int = 1, cp_size: int = 1,
                     dtype=torch.bfloat16, device="cpu"):
-    """Per-layer KV cache buffers (B, Hkv, max_len, hd)."""
+    """Per-layer KV cache buffers (B, Hkv, max_len, hd).  Under context
+    parallelism ``max_len`` is the rank's shard of the sequence (the caller
+    divides it)."""
     hd = cfg.hd
     kv = cfg.kv_heads // tp_size
     shape = (batch, kv, max_len, hd)
@@ -156,9 +162,14 @@ def attn_decode(cfg, ctx: ParallelCtx, p, x, cache, position, write_at, *,
     (the JAX version returns ``dynamic_update_slice`` copies; the verifier
     traces each write as that op, with its own index wrap), and the same
     dict is returned.
+
+    Under context parallelism the cache holds this rank's ``S_loc``
+    positions of the sequence, from ``cp_index() * S_loc``: the owning rank
+    stores the new K/V (each other rank writes its old K/V back at the
+    clipped index, as JAX's ``where(in_range, knew, old_k)``), every rank
+    attends over its shard with the softmax stats kept, and the shards'
+    partial results are merged flash-decode style over the axis.
     """
-    if ctx.cp_axis:
-        raise NotImplementedError("context-parallel decode is not ported yet")
     B = x.shape[0]
     hd = cfg.hd
     q = linear(p["wq"], x)
@@ -175,10 +186,39 @@ def attn_decode(cfg, ctx: ParallelCtx, p, x, cache, position, write_at, *,
     q = apply_rope(q, position[None], cfg.rope_fraction, cfg.rope_theta)
     knew = apply_rope(knew, position[None], cfg.rope_fraction, cfg.rope_theta)
 
-    cache["k"].index_copy_(2, write_at, knew)
-    cache["v"].index_copy_(2, write_at, vnew)
-    out = chunked_attention(q, cache["k"], cache["v"], causal=False,
-                            kv_len=position + 1, unroll=unroll)
+    if ctx.cp_axis:
+        out = _cp_decode_attention(ctx, q, knew, vnew, cache, position, unroll)
+    else:
+        cache["k"].index_copy_(2, write_at, knew)
+        cache["v"].index_copy_(2, write_at, vnew)
+        out = chunked_attention(q, cache["k"], cache["v"], causal=False,
+                                kv_len=position + 1, unroll=unroll)
     out = out.transpose(1, 2).reshape(B, 1, Hq_loc * hd)
     y = linear(p["wo"], out)
     return ctx.sp_enter(y), cache
+
+
+def _cp_decode_attention(ctx: ParallelCtx, q, knew, vnew, cache, position, unroll):
+    """One token's attention over a KV cache cut along the sequence over the
+    context-parallel axis (``attn_decode``'s CP branch, as the JAX
+    package's): the write on the owning shard, attention over this shard at
+    its global key offset with the softmax stats kept, then the
+    flash-decode merge of the shards (max, rescale, sums)."""
+    B, Hq_loc, _, hd = q.shape
+    S_loc = cache["k"].shape[2]
+    shard = ctx.cp_index()
+    local_pos = position - shard * S_loc
+    in_range = (local_pos >= 0) & (local_pos < S_loc)
+    at = local_pos.clamp(0, S_loc - 1)[None]
+    for name, new in (("k", knew), ("v", vnew)):
+        old = cache[name].index_select(2, at)
+        cache[name].index_copy_(2, at, torch.where(in_range, new, old))
+    acc, m, denom = chunked_attention(q, cache["k"], cache["v"], causal=False,
+                                      k_offset=shard * S_loc, kv_len=position + 1,
+                                      with_stats=True, unroll=unroll)
+    m_g = ctx.pmax_cp(m)
+    corr = torch.exp(m - m_g)
+    l_g = ctx.psum_cp(denom * corr)
+    acc_g = ctx.psum_cp(acc * corr[..., None])
+    out = acc_g / l_g[..., None].clamp_min(1e-30)
+    return out.reshape(B, Hq_loc, 1, hd).to(q.dtype)

@@ -174,12 +174,13 @@ class Model:
         return x @ w
 
     # ------------------------------------------------------------------ layers
-    def _layer_fwd(self, lparams, x, positions, j: int):
+    def _layer_fwd(self, lparams, x, positions, j: int, kv_out: Optional[list] = None):
         cfg, ctx = self.cfg, self.ctx
         h = ctx.sp_exit(x)
         hn = rmsnorm(lparams["ln1"], h, cfg.norm_eps)
         if cfg.is_attn_layer(j):
-            x = x + attn_fwd(cfg, ctx, lparams["attn"], hn, positions, impl=self.impl)
+            x = x + attn_fwd(cfg, ctx, lparams["attn"], hn, positions, impl=self.impl,
+                             kv_out=kv_out)
         else:
             x = x + ssm_fwd(cfg, ctx, lparams["ssm"], hn, impl=self.impl)
         if "ln2" in lparams:
@@ -191,21 +192,25 @@ class Model:
                 x = x + mlp_fwd(cfg, ctx, lparams["mlp"], hn)
         return x
 
-    def _block(self, params, x, positions, i: int):
+    def _block(self, params, x, positions, i: int, kv_out: Optional[list] = None):
         """Block ``i``: layers ``i*P .. i*P+P-1`` (P the block period), each
         in its ``layer<li>`` scope."""
         P = self.cfg.block_period
         for j in range(P):
             with named_scope(f"layer{i * P + j}"):
-                x = self._layer_fwd(_tree_index(params["blocks"][j], i), x, positions, j)
+                x = self._layer_fwd(_tree_index(params["blocks"][j], i), x, positions, j,
+                                    kv_out)
         return x
 
-    def forward(self, params, batch, *, unroll: bool = False, remat: bool = False):
+    def forward(self, params, batch, *, unroll: bool = False, remat: bool = False,
+                kv_out: Optional[list] = None):
         """Full forward -> logits (B, S, V_loc[, sharded over tp]).  Each layer
         runs in a ``layer<i>`` scope (per-layer memoization in the verifier).
         ``remat`` recomputes each block period in the backward pass
         (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``
-        around the JAX package's scanned block).  ``unroll`` is accepted for
+        around the JAX package's scanned block).  ``kv_out``: a list each
+        attention layer's K and V, after RoPE, are appended to in layer
+        order (a prefill that fills a KV cache).  ``unroll`` is accepted for
         the JAX signature; layers are always a Python loop."""
         del unroll
         cfg, ctx = self.cfg, self.ctx
@@ -215,9 +220,9 @@ class Model:
         for i in range(cfg.n_layers // cfg.block_period):
             if remat:
                 x = torch.utils.checkpoint.checkpoint(self._block, params, x, positions, i,
-                                                      use_reentrant=False)
+                                                      kv_out, use_reentrant=False)
             else:
-                x = self._block(params, x, positions, i)
+                x = self._block(params, x, positions, i, kv_out)
         x = ctx.sp_exit(x)
         x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return self._head(params, x)
@@ -253,14 +258,16 @@ class Model:
     def init_cache(self, batch: int, max_len: int) -> tuple:
         """Stacked per-block-position caches (KV for attention layers, SSD
         state and conv buffers for SSM layers), zeroed, on the model's
-        device."""
-        cfg = self.cfg
+        device; under context parallelism each KV cache holds the rank's
+        ``max_len // cp_size`` positions."""
+        cfg, ctx = self.cfg, self.ctx
         P = cfg.block_period
         nb = cfg.n_layers // P
+        s_loc = max_len // ctx.cp_size if ctx.cp_axis else max_len
         caches = []
         for j in range(P):
             if cfg.is_attn_layer(j):
-                c = attn_init_cache(cfg, batch, max_len, self.ctx.tp_size,
+                c = attn_init_cache(cfg, batch, s_loc, self.ctx.tp_size,
                                     dtype=self.dtype, device=self.device)
             else:
                 c = ssm_init_cache(cfg, batch, self.ctx.tp_size, dtype=self.dtype,

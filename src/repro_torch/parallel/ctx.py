@@ -20,10 +20,11 @@ its collectives on the default group, which holds every rank.  Over a
 ``DeviceMesh`` (``from_mesh``) the context keeps one process-group name and
 one rank tensor per mesh axis: the model-axis collectives (``psum_tp``,
 ``gather_tp``, ``scatter_tp``, ``pmax_tp``, ``psum_ep``) run on the model
-axis' group and ``psum_dp``/``pmean_dp`` on each data axis' group, so tp x
-dp runs as the JAX package's 2-D shard_map does.  ``pmax``, ``psum_scatter``
-and ``all_gather`` run on any named axis (training's data-axis collectives).
-The context-parallel axis raises ``NotImplementedError``.
+axis' group, ``psum_dp``/``pmean_dp`` on each data axis' group and
+``psum_cp``/``pmax_cp`` on the context-parallel axis' group (a decode step
+whose KV cache is cut along the sequence), so tp x dp and tp x cp run as
+the JAX package's 2-D shard_map does.  ``pmax``, ``psum_scatter`` and
+``all_gather`` run on any named axis (training's data-axis collectives).
 
 Gradients flow through every collective as through JAX's transposes: a psum's
 cotangent is psummed, an all_gather's is psum_scattered and a psum_scatter's
@@ -41,8 +42,15 @@ from typing import Optional
 import torch
 
 
-def _unported(what) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
+# the collectives whose trace nodes take the line that calls them (the rank
+# program's), as ``lax.psum`` called there does in JAX; the tracer reads
+# this set, and every other collective keeps its line in this file
+CALLER_LINE_CODES: set = set()
+
+
+def _at_caller_line(fn):
+    CALLER_LINE_CODES.add(fn.__code__)
+    return fn
 
 
 def _c10d():
@@ -201,7 +209,8 @@ class ParallelCtx:
 
     @property
     def distributed(self) -> bool:
-        return self.tp_axis is not None or self.dp_axis is not None
+        return (self.tp_axis is not None or self.dp_axis is not None
+                or self.cp_axis is not None)
 
     def axis_group(self, axis: str) -> str:
         """The name of ``axis``' process group, as the functional collective
@@ -220,6 +229,8 @@ class ParallelCtx:
     def axis_size(self, axis: str) -> int:
         if axis == self.tp_axis:
             return self.tp_size
+        if axis == self.cp_axis:
+            return self.cp_size
         axes = self.dp_axis if isinstance(self.dp_axis, tuple) else (self.dp_axis,)
         if axis in axes and self.dp_axis_sizes:
             return self.dp_axis_sizes[axes.index(axis)]
@@ -343,6 +354,7 @@ class ParallelCtx:
         return x
 
     # -- data-parallel -------------------------------------------------------
+    @_at_caller_line
     def psum_dp(self, x):
         """``lax.psum`` over the data axes: one all_reduce on each axis'
         group (their product's sum)."""
@@ -357,18 +369,17 @@ class ParallelCtx:
         """``lax.pmean``: the psum over the data axis, divided by its size."""
         return self.psum_dp(x) / self.dp_size if self.dp_axis else x
 
-    # -- context parallel ----------------------------------------------------
+    # -- context parallel (flash decode over a sequence-cut KV cache) --------
     def cp_index(self):
-        if self.cp_axis:
-            raise _unported(f"context parallelism over {self.cp_axis!r}")
-        return 0
+        """This rank's index along the context-parallel axis: its rank
+        tensor, as every axis' (0 without one)."""
+        return self.axis_index(self.cp_axis) if self.cp_axis else 0
 
     def psum_cp(self, x):
-        if self.cp_axis:
-            raise _unported(f"context parallelism over {self.cp_axis!r}")
-        return x
+        """``lax.psum`` over the context-parallel axis."""
+        return self.psum(x, self.cp_axis) if self.cp_axis else x
 
     def pmax_cp(self, x):
-        if self.cp_axis:
-            raise _unported(f"context parallelism over {self.cp_axis!r}")
-        return x
+        """``lax.pmax`` over the context-parallel axis, of a value autograd
+        does not track."""
+        return self.pmax(x, self.cp_axis) if self.cp_axis else x

@@ -31,6 +31,11 @@ mesh, each stage the program of the ``stage`` scenario.
 :func:`train_step` runs steps of the trainer's ``make_step_fn`` over a
 (data, model) mesh, the port's counterpart of the JAX package's
 ``shard_map`` of the train step.
+:func:`dp_grad` is the per-rank program of the verifier's ``dp-grad``
+scenario (the gradients of the rank's forward sum, psummed over the data
+axis), which a rank runs on its rows.
+:func:`cp_decode` runs the decode step with the KV cache cut along the
+sequence over a context-parallel axis (and over heads on the model axis).
 """
 from __future__ import annotations
 
@@ -371,3 +376,75 @@ def train_step(rank: int, world: int, cfg, init, batches: list, tp: int, tcfg,
     out["params"] = tree_map(lambda t: t.cpu(), params)
     out["opt"] = {k: tree_map(lambda t: t.cpu(), opt[k]) for k in ("m", "v")}
     return out
+
+
+def sum_grads(model, params, batch) -> dict:
+    """The gradients of ``model.forward(params, batch).float().sum()`` with
+    respect to every leaf of ``params`` (``jax.grad`` of the forward sum;
+    zeros for a leaf the forward does not read), through the trainer's
+    autograd path, on the model's path (``impl="reference"``: the kernels
+    have no backward)."""
+    from repro_torch.train.trainer import value_and_grad
+
+    return value_and_grad(lambda p: model.forward(p, batch).float().sum(), params)[1]
+
+
+def dp_grad(model, params, batch) -> dict:
+    """One rank of the data-parallel gradient sync, the program the
+    verifier's ``dp-grad`` scenario proves: the gradients of this rank's
+    forward sum over its rows, each psummed over the data axis.  The loss
+    is a sum, so the psum gives the full batch's gradients with no
+    ``1 / dp``."""
+    grads = sum_grads(model, params, batch)
+    return tree_map(model.ctx.psum_dp, grads)
+
+
+def cp_decode(rank: int, world: int, cfg, init, tokens: torch.Tensor, start: int,
+              caches, tp: int, device: str = "cuda") -> dict:
+    """One rank of the context-parallel decode step of ``cfg`` (on the card
+    unless ``device`` says otherwise) over a (data, model) = (world / tp,
+    tp) mesh, the data axis the context-parallel one
+    (``ParallelCtx.from_mesh(mesh, dp=None, cp="data")``).  ``init`` is a
+    seed from which the single-device parameters are drawn, or that tree
+    itself (CPU tensors); the rank keeps the shard of its model coordinate.
+    ``caches`` are the single-device caches (CPU tensors, filled up to
+    ``start``); the rank keeps its (head, sequence) shard of each
+    (``cache_specs(..., cp="data")``).  ``tokens`` (B, T) are fed one step
+    at a time, step ``t`` at position ``start + t``.  Returns the rank's
+    coordinates, each step's vocab shard of the logits (T, B, V_loc) (on
+    the CPU) and the mean time of one step in ms."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Model
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.parallel.sharding import cache_specs, param_specs, shard_params
+
+    cp = world // tp
+    dev = torch.device(device)
+    mesh = make_debug_mesh(tp, cp, device_type=dev.type)
+    ctx = ParallelCtx.from_mesh(mesh, dp=None, cp="data")
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    if isinstance(init, int):
+        params = _model_shard(cfg, init, "reference", dev, m, tp)
+    else:
+        params = shard_params(init, param_specs(init), m, tp)
+        params = tree_map(lambda t: t.to(dev), params)
+    local = shard_params(caches, cache_specs(caches, cp="data"), {"model": m, "data": d},
+                         {"model": tp, "data": cp})
+    # a copy: the step writes its caches in place, and a leaf no axis cuts
+    # is the caller's tensor itself (shared with the other ranks on the CPU)
+    local = tree_map(lambda t: t.to(dev, copy=True), local)
+    model = Model(cfg, ctx, impl="reference", device=dev)
+    tokens = tokens.to(dev)
+    logits = []
+    with torch.inference_mode():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(tokens.shape[1]):
+            pos = torch.full((), start + t, dtype=torch.int64, device=dev)
+            out, local = model.decode_step(params, tokens[:, t], local, pos)
+            logits.append(out)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
+    return {"data": d, "model": m, "logits": torch.stack(logits).cpu(), "ms": ms}

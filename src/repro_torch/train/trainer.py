@@ -37,14 +37,22 @@ def _split_micro(batch, n: int):
     return tree_map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:]), batch)
 
 
-def _value_and_grad(model: Model, tcfg: TrainConfig, params, batch):
+def value_and_grad(fn, params):
+    """``fn(params)`` (a scalar) and its gradient with respect to every leaf
+    of ``params``, through ``torch.autograd.grad`` on detached copies that
+    require grad: ``jax.value_and_grad``, zeros for a leaf ``fn`` does not
+    reach."""
     leaves, treedef = tree_flatten(params)
     tracked = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss = model.loss(tree_unflatten(treedef, tracked), batch, remat=tcfg.remat)
-        grads = torch.autograd.grad(loss, tracked, allow_unused=True,
+        out = fn(tree_unflatten(treedef, tracked))
+        grads = torch.autograd.grad(out, tracked, allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), tree_unflatten(treedef, list(grads))
+    return out.detach(), tree_unflatten(treedef, list(grads))
+
+
+def _value_and_grad(model: Model, tcfg: TrainConfig, params, batch):
+    return value_and_grad(lambda p: model.loss(p, batch, remat=tcfg.remat), params)
 
 
 def local_grads(model: Model, tcfg: TrainConfig, params, batch):

@@ -30,11 +30,8 @@ schema-versioned JSON; :meth:`CampaignReport.canonical` strips timings and
 cache counters so the same seeds produce byte-identical reports (the CI
 determinism check).
 
-The ``tp-forward``, ``tp-decode`` and ``sp-forward`` scenarios are
-ported: the cells of the others are reported as ``not_ported`` and count
-neither as detected nor as missed.
-The baseline-free lint tier is not ported either, so ``lint_detected``
-stays False.
+The baseline-free lint tier is not ported, so ``lint_detected`` stays
+False.
 
 CLI verb: ``python -m repro_torch.verify campaign --arch llama3_8b --tp 4``.
 """
@@ -51,7 +48,7 @@ from repro_torch.core.synth import fuzz_inject, fuzz_tp_mlp, input_facts_of
 from repro_torch.core.verifier import VerifyOptions, verify_graphs
 
 from .plan import Plan, PlanError
-from .scenarios import DEFAULT_SCENARIOS, get_arch_config
+from .scenarios import get_arch_config
 from .session import Session
 
 CAMPAIGN_SCHEMA_VERSION = 1
@@ -68,7 +65,6 @@ MISLOCALIZED = "mislocalized"  # detected, but not in the top-K sites
 CLEAN_PASS = "clean_pass"
 FALSE_POSITIVE = "false_positive"
 SKIPPED = "skipped"
-NOT_PORTED = "not_ported"  # the scenario is not ported to torch yet
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +144,6 @@ class CampaignCell:
     scenario: str
     injector: str  # "" for the clean cell
     outcome: str  # detected | missed | clean_pass | false_positive | skipped
-    #               | not_ported
     category: str = ""  # expected diagnostic category (injected cells)
     site: str = ""  # injected source site
     localized: bool = False  # site among the top-K ranked BugSites
@@ -314,8 +309,7 @@ class CampaignReport:
                  f"{self.localization_rate:.0%} localized, "
                  f"{self.elapsed_s:.1f}s)"]
         mark = {DETECTED: "D", MISLOCALIZED: "d", MISSED: "MISS!",
-                CLEAN_PASS: "ok", FALSE_POSITIVE: "FP!", SKIPPED: "-",
-                NOT_PORTED: "n/p"}
+                CLEAN_PASS: "ok", FALSE_POSITIVE: "FP!", SKIPPED: "-"}
         for arch in self.archs:
             cells = [c for c in self.cells if c.arch == arch]
             if not cells:
@@ -334,13 +328,8 @@ class CampaignReport:
                     row.append(f"{mark.get(c.outcome, '?') if c else '':>14s}")
                 label = inj or "(clean)"
                 lines.append(f"  {label:<{w}s}" + " ".join(row))
-        if any(c.injector and c.outcome not in (SKIPPED, NOT_PORTED)
-               for c in self.cells):
+        if any(c.injector and c.outcome != SKIPPED for c in self.cells):
             lines.append("  lint tier: not ported")
-        unported = sorted({c.scenario for c in self.cells
-                           if c.outcome == NOT_PORTED})
-        if unported:
-            lines.append(f"  not ported: {', '.join(unported)}")
         if self.fuzz:
             det = sum(1 for f in self.fuzz if f.injected_outcome == DETECTED)
             n_inj = sum(1 for f in self.fuzz if f.injected_outcome != SKIPPED)
@@ -475,17 +464,10 @@ def run_campaign(
     own = session is None
     session = session or Session(options=options, cache_dir=cache_dir)
     try:
-        ported = set(DEFAULT_SCENARIOS.kinds())
         for arch in archs:
             cfg = get_arch_config(arch)
             for cs in scens:
                 if not cs.applies(cfg):
-                    continue
-                if cs.kind not in ported:
-                    report.cells.extend(
-                        CampaignCell(arch, cs.kind, name, NOT_PORTED,
-                                     detail="scenario not ported yet")
-                        for name in [""] + report.injectors)
                     continue
                 plan = cs.plan_of(tp, dp, layers, seq)
                 # clean cell: the scenario itself must verify (and its pair
@@ -514,7 +496,7 @@ def run_campaign(
 
 
 __all__ = [
-    "CAMPAIGN_SCHEMA_VERSION", "CAMPAIGN_SCENARIOS", "NOT_PORTED", "SCENARIO_KINDS",
+    "CAMPAIGN_SCHEMA_VERSION", "CAMPAIGN_SCENARIOS", "SCENARIO_KINDS",
     "CampaignCell", "CampaignReport", "CampaignScenario", "FuzzCell",
     "run_campaign", "InjectorError",
 ]

@@ -4,7 +4,7 @@ graphs traced from the torch models).
     python -m repro_torch.verify <arch> --tp 4 [--decode | --sp | --pipeline K]
                                  [--dp N] [--composite] [--layers N]
                                  [--json out.json|-] [--cache-dir DIR]
-    python -m repro_torch.verify <arch> --dp 2
+    python -m repro_torch.verify <arch> --dp 2 [--grad]
     python -m repro_torch.verify <moe arch> --ep 4
     python -m repro_torch.verify --list
     python -m repro_torch.verify --list-injectors
@@ -15,12 +15,12 @@ The ``campaign`` verb runs the detection-benchmark matrix
 applicable scenario x every ``--arch``, plus ``--seeds`` fuzzer seeds;
 exit 1 on any missed detection or clean-cell false positive.
 
-The ``tp-forward``, ``tp-decode`` (``--decode``), ``sp-forward`` (``--sp``),
-``dp-forward`` (``--dp``), ``ep-moe-forward`` (``--ep``), ``stage``
-(``--pipeline``) and ``tpdp-forward`` (``--composite``) scenarios are
-ported: a plan that needs dp-grad (``--grad``) exits 2 with the registry's
-list of what is available.  The lint tier (``--lint``, the ``lint`` and
-``rulecheck`` verbs) is not ported yet and exits 2 as well.
+Every scenario of the JAX package is ported: ``tp-forward``, ``tp-decode``
+(``--decode``), ``sp-forward`` (``--sp``), ``dp-forward`` (``--dp``),
+``dp-grad`` (``--grad``), ``ep-moe-forward`` (``--ep``), ``stage``
+(``--pipeline``) and ``tpdp-forward`` (``--composite``).  The lint tier
+(``--lint``, the ``lint`` and ``rulecheck`` verbs) is not ported yet and
+exits 2.
 
 Exit codes (stable contract for CI and launcher scripts):
 

@@ -10,6 +10,8 @@ Registered kinds (see ``python -m repro_torch.verify --list``):
 ``tp-forward``     baseline forward vs TP-sharded per-rank forward
 ``tp-decode``      one serving step against head-sharded KV/SSM caches
 ``dp-forward``     batch-sharded forward (cross-batch interaction)
+``dp-grad``        per-device sum-loss gradients + psum vs full-batch
+                   gradients (the DP gradient-sync contract)
 ``sp-forward``     sequence-parallel forward (reduce_scatter/all_gather
                    around the norm regions vs the psum baseline)
 ``ep-moe-forward`` expert-parallel MoE forward (unrolled expert slice/add
@@ -17,9 +19,6 @@ Registered kinds (see ``python -m repro_torch.verify --list``):
 ``tpdp-forward``   tp x dp composite: the 2-D per-rank program vs the 1-D
                    TP program (axis interaction)
 ``stage``          one pipeline stage in isolation (TP inside the stage)
-
-The JAX package's dp-grad is not ported yet: asking for it gives the
-registry's ``PlanError``, which lists what is registered.
 """
 from __future__ import annotations
 

@@ -66,14 +66,19 @@ class BuildCtx:
     base_key: tuple = ()
     base_cached: bool = field(default=False, init=False)
 
-    def trace_base(self, tag: str, fn, *shapes, name: str = "base"):
+    def trace_base(self, tag: str, fn, *shapes, name: str = "base",
+                   grad: bool = False):
         """Trace the baseline program, shared across scenarios: the cache is
         keyed on ``(base_key, tag, shape signature)`` so any two scenarios
-        tracing the *same program over the same shapes* reuse one trace."""
-        return self._traced(tag, lambda: trace(fn, *shapes, name=name), shapes)
+        tracing the *same program over the same shapes* reuse one trace.
+        ``grad``: the program differentiates (:func:`trace`'s gradient
+        path)."""
+        return self._traced(tag, lambda: trace(fn, *shapes, name=name, grad=grad),
+                            shapes)
 
     def trace_base_sharded(self, tag: str, fn, size: int, in_specs, *shapes,
-                           axis: str = "model", name: str = "dist"):
+                           axis: str = "model", name: str = "dist",
+                           grad: bool = False):
         """Sharded-trace variant of :meth:`trace_base`: ``size`` ranks over
         ``axis``, or a mesh ``{axis: size}`` (:func:`trace_sharded`).  The
         composite scenario's *baseline* is exactly tp-forward's distributed
@@ -82,7 +87,7 @@ class BuildCtx:
         shapes)."""
         return self._traced(
             tag, lambda: trace_sharded(fn, size, in_specs, *shapes, axis=axis,
-                                       name=name),
+                                       name=name, grad=grad),
             shapes)
 
     def _traced(self, tag: str, thunk, shapes):

@@ -37,11 +37,12 @@ KNOWN_EXCEPTIONS = {
     "verify/scenarios/tp.py": "the rank is a traced input; decode traced functionalized",
     "verify/store.py": "the rules hash keys on the torch version",
     "verify/session.py": "the lint tier is not ported",
-    "verify/cli.py": "the lint tier and dp-grad exit 2",
-    "verify/scenarios/__init__.py": "registers the ported scenarios only",
-    "verify/scenarios/dp.py": "dp-grad needs the backward trace; torch pytrees",
+    "verify/cli.py": "the lint tier exits 2",
+    "verify/scenarios/__init__.py": "an arch whose family is not ported is a PlanError",
+    "verify/scenarios/dp.py": "dp-grad traced through torch.autograd, its rank program "
+                              "spmd.dp_grad; torch pytrees",
     "verify/scenarios/ep.py": "the rank is a traced input; no AbstractMesh",
-    "verify/campaign.py": "unported scenarios are reported, the lint tier is off",
+    "verify/campaign.py": "the lint tier is off",
     "verify/scenarios/pipeline.py": "the rank is a traced input; the stage program "
                                     "is shared with parallel/pipeline.py",
     "verify/scenarios/composite.py": "the 2-D mesh is traced under the fake process "

@@ -157,6 +157,7 @@ def test_shard_params_follows_param_specs():
 def _collectives_rank(rank, world):
     ctx = ParallelCtx.tensor_parallel(world, rank=torch.tensor(rank))
     dp = ParallelCtx(dp_axis=("data",), dp_size=world)
+    cp = ParallelCtx(cp_axis="data", cp_size=world)
     sp = ParallelCtx.tensor_parallel(world, rank=torch.tensor(rank), sp=True)
     x = torch.arange(6.0).reshape(2, 3) + 10 * rank
     ones = torch.ones(2 * world, 3) * (rank + 1)
@@ -167,7 +168,8 @@ def _collectives_rank(rank, world):
             "scatter": ctx.scatter_tp(ones, 0).clone(), "index": int(ctx.tp_index()),
             "sp_enter": ctx.sp_enter(x).clone(), "sp_scatter": sp.sp_enter(seq).clone(),
             "sp_gather": sp.sp_exit(seq[:, :2]).clone(),
-            "psum_dp": dp.psum_dp(x).clone(), "pmean_dp": dp.pmean_dp(x).clone()}
+            "psum_dp": dp.psum_dp(x).clone(), "pmean_dp": dp.pmean_dp(x).clone(),
+            "psum_cp": cp.psum_cp(x).clone(), "pmax_cp": cp.pmax_cp(x).clone()}
 
 
 def test_collectives_on_gloo_ranks():
@@ -188,8 +190,10 @@ def test_collectives_on_gloo_ranks():
         # the data axis alone: psum and pmean over the ranks
         assert torch.equal(out["psum_dp"], xs[0] + xs[1])
         assert torch.equal(out["pmean_dp"], (xs[0] + xs[1]) / 2)
-    with pytest.raises(NotImplementedError):
-        ParallelCtx(cp_axis="data", cp_size=2).psum_cp(xs[0])
+        # the context-parallel axis alone (the default group): its psum and
+        # pmax, the flash-decode merge's
+        assert torch.equal(out["psum_cp"], xs[0] + xs[1])
+        assert torch.equal(out["pmax_cp"], torch.maximum(xs[0], xs[1]))
     # beside tensor parallelism (tp x dp over a (data, model) mesh), each
     # sum runs on its own axis' group: over 2 and over 2 of the 4 ranks
     for rank, out in enumerate(spmd.run(_mesh_collectives_rank, 4, timeout=120)):
@@ -199,7 +203,11 @@ def test_collectives_on_gloo_ranks():
         assert torch.equal(out["psum_dp"], torch.tensor([2.0 * m + 4]))
         assert torch.equal(out["pmean_dp"], torch.tensor([m + 2.0]))
         assert out["sizes"] == (2, 2, 2)
+        # the data axis as the context-parallel one: its rank tensor, and
+        # its sums on its own group
+        assert out["cp"] == (d, 2.0 * m + 4, 2.0 + m + 1)
     assert ParallelCtx.single().psum_dp(xs[0]) is xs[0]
+    assert ParallelCtx.single().psum_cp(xs[0]) is xs[0]
     assert batch_spec({"tokens": xs[0]}, "data") == {"tokens": P("data", None)}
 
 
@@ -208,12 +216,14 @@ def _mesh_collectives_rank(rank, world):
 
     mesh = make_debug_mesh(tp=2, dp=world // 2, device_type="cpu")
     ctx = ParallelCtx.from_mesh(mesh)
+    cp = ParallelCtx.from_mesh(mesh, dp=None, cp="data")
     x = torch.tensor([rank + 1.0])
     return {"data": mesh.get_local_rank("data"), "model": mesh.get_local_rank("model"),
             "ranks": (int(ctx.axis_index("data")), int(ctx.tp_index())),
             "psum_tp": ctx.psum_tp(x).clone(), "psum_dp": ctx.psum_dp(x).clone(),
             "pmean_dp": ctx.pmean_dp(x).clone(),
-            "sizes": (ctx.tp_size, ctx.dp_size, ctx.ep_size)}
+            "sizes": (ctx.tp_size, ctx.dp_size, ctx.ep_size),
+            "cp": (int(cp.cp_index()), float(cp.psum_cp(x)), float(cp.pmax_cp(x)))}
 
 
 def test_a_failing_rank_is_reported():

@@ -23,7 +23,7 @@ F = torch.nn.functional
 from repro.compat import abstract_mesh  # noqa: E402
 from repro.core.trace import trace as jtrace  # noqa: E402
 from repro.core.trace import trace_sharded as jtrace_sharded  # noqa: E402
-from repro_torch.core.trace import ShapeDtype, trace, trace_sharded  # noqa: E402
+from repro_torch.core.trace import ShapeDtype, fx_program, trace, trace_sharded  # noqa: E402
 from repro_torch.models.attention import write_index  # noqa: E402
 from repro_torch.models.modules import dynamic_slice_in_dim, einsum_f32  # noqa: E402
 from repro_torch.parallel.sharding import P  # noqa: E402
@@ -392,3 +392,105 @@ def test_tpdp_program_ir_follows_jax():
     assert [g.dist[i].shape for i in g.dist_inputs] == [jg.dist[i].shape
                                                         for i in jg.dist_inputs]
     assert g.dist[g.dist_inputs[-1]].shape == (2, 32)  # tokens (4, 32) over "data"
+
+
+# the gradient path: each backward op lowers as JAX transposes its forward
+# op (the same ops, counted over the nodes the gradient depends on; make_fx
+# drops dead code, JAX's trace keeps it)
+def _live_ops(g):
+    seen, todo = set(), list(g.outputs)
+    while todo:
+        i = todo.pop()
+        if i not in seen:
+            seen.add(i)
+            todo.extend(g[i].inputs)
+    return [g[i] for i in sorted(seen) if g[i].op not in ("input", "const")]
+
+
+def _grad_pair(tfn, jfn, shape):
+    def tgrad(x):
+        x = x.detach().requires_grad_()
+        return torch.autograd.grad(tfn(x).sum(), x)[0]
+
+    g, _, _ = trace(tgrad, ShapeDtype(shape, torch.float32), grad=True)
+    jg, _, _ = jtrace(jax.grad(lambda x: jfn(x).sum()), jax.ShapeDtypeStruct(shape, jnp.float32))
+    return g, jg
+
+
+@pytest.mark.parametrize("tfn,jfn", [
+    (lambda x: x[1] * 2, lambda x: x[1] * 2),                  # select_backward
+    (lambda x: x[..., :2] * 3, lambda x: x[..., :2] * 3),      # slice_backward
+    (F.silu, jax.nn.silu),                                      # silu_backward
+    (lambda x: F.gelu(x, approximate="tanh"), jax.nn.gelu),    # gelu_backward (tanh)
+    (F.softplus, jax.nn.softplus),                              # softplus_backward
+    (lambda x: torch.cumsum(x, -1) * 2, lambda x: jnp.cumsum(x, -1) * 2),  # flip, cumsum, flip
+], ids=["select_backward", "slice_backward", "silu_backward", "gelu_backward",
+        "softplus_backward", "reverse_cumsum"])
+def test_backward_ops_lower_as_jax_transposes(tfn, jfn):
+    import collections
+
+    g, jg = _grad_pair(tfn, jfn, (3, 4, 5))
+    ops = collections.Counter(n.op for n in _live_ops(g))
+    assert ops == collections.Counter(n.op for n in _live_ops(jg))
+    for op, key in (("pad", "padding_config"), ("cumsum", "reverse"), ("cumsum", "axis"),
+                    ("integer_pow", "y")):
+        assert sorted(_param(g, op, key)) == sorted(_freeze(v) for v in _param(jg, op, key))
+
+
+def test_embedding_gradient_is_take_transpose():
+    """``index_put`` with ``accumulate`` into zeros, the gradient of a row
+    lookup, is JAX's transpose of ``jnp.take(table, ids, axis=0)``: the ids
+    given a trailing index dim and one ``scatter_add`` with the gather's
+    dimension numbers into a zero ``broadcast``."""
+    def tgrad(t, ids):
+        t = t.detach().requires_grad_()
+        return torch.autograd.grad(t[ids].sum(), t)[0]
+
+    g, _, _ = trace(tgrad, ShapeDtype((10, 4), torch.float32),
+                    ShapeDtype((2, 3), torch.int64), grad=True)
+    jg, _, _ = jtrace(jax.grad(lambda t, ids: jnp.take(t, ids, axis=0).sum()),
+                      jax.ShapeDtypeStruct((10, 4), jnp.float32),
+                      jax.ShapeDtypeStruct((2, 3), jnp.int32))
+    sa, = (n for n in g if n.op == "scatter_add")
+    jsa, = (n for n in jg if n.op == "scatter_add")
+    assert sa.params == jsa.params and sa.shape == jsa.shape
+    assert [(g[i].op, g[i].shape, g[i].param("broadcast_dimensions")) for i in sa.inputs] \
+        == [(jg[i].op, jg[i].shape, _freeze(jg[i].param("broadcast_dimensions")))
+            for i in jsa.inputs]
+
+
+def test_masked_fill_is_jnp_where():
+    """``masked_fill`` (the in-place ``masked_fill_`` of ``maximum``'s
+    backward, folded to its functional form) lowers as ``jnp.where(mask,
+    value, x)``."""
+    g, jg = _pair(lambda x, y: x.masked_fill(y > 0, 0.0),
+                  lambda x, y: jnp.where(y > 0, 0.0, x), ((3, 4), F32), ((3, 4), F32))
+    assert _body(g) == _body(jg)
+    sel = next(n for n in g if n.op == "select")
+    jsel = next(n for n in jg if n.op == "select")
+    assert [g[i].op for i in sel.inputs] == [jg[i].op for i in jsel.inputs]
+
+
+def test_inplace_write_read_through_a_view_is_refused():
+    """An in-place op of a gradient trace folds to its functional form only
+    where nothing reads the written memory after it: a view of the tensor
+    taken before the write and read after it would keep the old values in
+    the folded program, so the trace refuses it.  The same write with no
+    late reader folds, and the folded program gives eager's values."""
+    def late_view(x):
+        y = x * 2
+        v = y.view(-1)
+        y.masked_fill_(y > 1, 0.0)
+        return v + 1
+
+    def no_late_view(x):
+        y = x * 2
+        y.masked_fill_(y > 1, 0.0)
+        return y + 1
+
+    sd = ShapeDtype((3, 4), torch.float32)
+    with pytest.raises(NotImplementedError, match="read after it"):
+        fx_program(late_view, sd, grad=True)
+    gm = fx_program(no_late_view, sd, grad=True)
+    x = torch.randn(3, 4, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(gm(x)[0], no_late_view(x))

@@ -1,10 +1,11 @@
 """The port's training launcher on the CPU (``--device cpu``), tp x dp gloo
 ranks spawned by ``parallel.spmd.run``: the counterparts of
 tests/test_train_integration.py (the verification gate and a loss that
-falls, checkpoint, kill and resume, and a resume onto another mesh), plus
-the two launches it refuses with exit 2 before any weight is drawn
-(``--zero1`` with ``--dp > 1``, where the JAX launcher crashes, and
-``--sp`` on the card) and its refusal to run without a GPU unless asked."""
+falls, checkpoint, kill and resume, and a resume onto another mesh), a
+sequence-parallel launch whose gate proves the SP plan, the launch it
+refuses with exit 2 before any weight is drawn (``--zero1`` with ``--dp >
+1``, where the JAX launcher crashes) and its refusal to run without a GPU
+unless asked."""
 import re
 
 import pytest
@@ -67,15 +68,27 @@ def test_elastic_resume_different_mesh(tmp_path, capsys):
     assert _losses(out)[0] == pytest.approx(_losses(steady)[0], rel=1e-3)
 
 
-@pytest.mark.parametrize("flags", [["--zero1", "--dp", "2"], ["--sp", "--tp", "2"]])
+@pytest.mark.parametrize("flags", [["--zero1", "--dp", "2"],
+                                   ["--zero1", "--dp", "2", "--tp", "2", "--sp"]])
 def test_refused_launches_exit_2_before_any_weight(flags, monkeypatch, capsys):
-    """``--zero1 --dp 2`` on any device, ``--sp`` on the card (the CPU has
-    no card, so the device check is stood in for)."""
+    """``--zero1 --dp 2`` on any device, with or without TP and SP (the CPU
+    has no card, so the device is stood in for: ``--sp`` alone is no longer
+    refused on the card)."""
     monkeypatch.setattr(launch_train, "Model", lambda *a, **kw: pytest.fail("model built"))
     monkeypatch.setattr(launch_train, "resolve_device", lambda d: torch.device("cuda"))
     assert launch_train.main(["--arch", "qwen3_4b", "--smoke", *flags]) == 2
     out = capsys.readouterr().out
     assert "REFUSED" in out and "step" not in out.replace("steps", "")
+
+
+def test_sp_launch_gate_proves_the_sp_plan(capsys):
+    """``--sp`` on tp 2 x dp 2 ranks: the gate verifies the sequence-parallel
+    plan (sp-forward beside dp-forward), then the ranks train with SP."""
+    out = _train(["--arch", "qwen3_4b", "--smoke", "--steps", "3", "--tp", "2",
+                  "--dp", "2", "--sp", "--seq", "32", "--batch", "4"], capsys)
+    gate = next(line for line in out.splitlines() if line.startswith("[verify] checking"))
+    assert "+sp" in gate and "[verify] VERIFIED" in out and "[done] 3 steps" in out
+    assert len(_losses(out)) == 2
 
 
 def test_launcher_needs_gpu_unless_cpu_asked():

@@ -137,14 +137,15 @@ def test_full_depth_is_stamped():
 
 
 # (argv, the port's exit code, the reference's; None: not run, since the
-# reference supports the scenario the port does not have yet, dp-grad)
+# reference's dp-grad verdict fails on this toolchain's jax, which emits
+# ``split`` for RoPE's concatenate, a record that is no parity target)
 @pytest.mark.parametrize("argv,code,jax_code", [
     (["llama3_8b", "--tp", "4", "--layers", "2"], 0, 0),
     (["llama3_8b", "--tp", "4", "--layers", "2", "--inject", "drop_all_reduce"], 1, 1),
     (["llama3_8b", "--tp", "1"], 2, 2),
     (["no_such_arch", "--tp", "4"], 2, 2),
     (["llama3_8b", "--dp", "2", "--layers", "2"], 0, 0),
-    (["llama3_8b", "--grad", "--dp", "2"], 2, None),
+    (["llama3_8b", "--grad", "--dp", "2", "--layers", "2"], 0, None),
     (["llama3_8b", "--pipeline", "2", "--tp", "4", "--layers", "4"], 0, 0),
     (["llama3_8b", "--tp", "4", "--dp", "2", "--composite", "--layers", "2"], 0, 0),
     (["llama3_8b", "--pipeline", "2", "--tp", "1"], 2, 2),
@@ -156,8 +157,8 @@ def test_cli_exit_codes_match_jax(argv, code, jax_code, capsys):
 
 
 def test_cli_unported_and_lint_exit_2(capsys):
-    assert cli.main(["llama3_8b", "--grad", "--dp", "2"]) == 2
-    assert "unknown scenario kind 'dp-grad'" in capsys.readouterr().err
+    assert cli.main(["llama3_8b", "--grad", "--dp", "2", "--layers", "2"]) == 0
+    assert "VERIFIED llama3_8b [dp2-grad]" in capsys.readouterr().out
     assert cli.main(["llama3_8b", "--tp", "4", "--lint"]) == 2
     assert cli.main(["lint", "--arch", "llama3_8b"]) == 2
     err = capsys.readouterr().err
@@ -166,7 +167,7 @@ def test_cli_unported_and_lint_exit_2(capsys):
         Session().verify("llama3_8b", Plan(tp=4, layers=LAYERS), lint=True)
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
-    assert "tp-forward" in out and "llama3_8b" in out and "dp-grad" not in out
+    assert "tp-forward" in out and "llama3_8b" in out and "dp-grad" in out
     assert "tp-decode" in out and "sp-forward" in out and "chatglm3_6b" in out
     assert "dp-forward" in out and "gemma_2b" in out
     assert "stage" in out and "tpdp-forward" in out
@@ -217,11 +218,14 @@ def test_serving_sp_and_ssm_campaign_cells_match_jax(arch, scenarios, detected):
 
 
 def test_unported_campaign_scenarios_are_not_missed():
+    """Every campaign scenario is ported: the dp-grad row (the last one
+    ported) verifies clean and detects a dropped gradient psum, localized."""
     rep = run_campaign(["llama3_8b"], tp=4, dp=2, scenarios=["tp-forward", "dp-grad"],
                        injectors=["drop_all_reduce"])
-    dp = [c for c in rep.cells if c.scenario == "dp-grad"]
-    assert dp and {c.outcome for c in dp} == {"not_ported"}
-    assert rep.ok and rep.missed == 0 and rep.detected == 1
+    dp = {c.injector: c for c in rep.cells if c.scenario == "dp-grad"}
+    assert dp[""].outcome == "clean_pass"
+    assert dp["drop_all_reduce"].outcome == "detected" and dp["drop_all_reduce"].localized
+    assert rep.ok and rep.missed == 0 and rep.detected == 2
     assert cli.campaign_main(["--fuzz-only", "--seeds", "2", "--quiet"]) == 0
 
 
