@@ -10,8 +10,14 @@ Phases, one JSON line each: device (name, capability, power limit, kernel
 builds), kernel resources (each kernel's registers, stack and spills from
 the ``nvcc -Xptxas -v`` log, and its dynamic shared memory), kernel
 flash_attention, kernel rmsnorm and kernel ssd_scan (kernel against its
-plain PyTorch version on the card, with times), then training, with grad
-enabled: train (qwen3_4b at full width and depth, bf16, 8 steps of the
+plain PyTorch version on the card, with times), and beside them, in a
+child process on the card's host, lint (the port's lint tier on four
+dense archs at full width, 2 layers, tp 1, tp 4 and SP, finding-free; an
+injected dropped all_reduce flagged at its line; the rule registry's
+static check clean) and dryrun (three cells of the multi-pod dry run on
+the 16x16 mesh at full depth, traced over fake tensors: per-device memory,
+roofline terms under the H100 model, the train cell's useful-FLOP ratio at
+most 1), then training, with grad enabled: train (qwen3_4b at full width and depth, bf16, 8 steps of the
 trainer's step on the reference path, as the launcher trains: every
 leaf's first gradient finite and nonzero, the first loss against the
 kernel path's, s/step, tokens/s and peak memory), train_parity (one f32
@@ -29,7 +35,10 @@ then, under ``inference_mode``, for each model at full
 width, with random weights from a seeded generator: prefill (through the
 kernels, checked against the reference path) and serve (the engine answers
 four requests; prefill logits are checked against the engine path's
-``decode_step``).  The models are qwen3_4b, qwen1_5_4b (qkv biases),
+``decode_step``; after qwen3_4b's, roofline: its train step's and its
+prefill's measured times each at least the H100 roofline bound of the
+port's IR counts, and the step's estimated peak memory beside the
+measured).  The models are qwen3_4b, qwen1_5_4b (qkv biases),
 chatglm3_6b (half-dim RoPE, 2 KV heads padded to 16) and gemma_2b (head dim
 256, GeGLU, tied embeddings), all through flash attention, and mamba2_130m
 (the SSD scan); then the frontends: hubert_xlarge (audio frames through 48
@@ -63,7 +72,8 @@ on llama3_8b's tp4 tp-forward, tp-decode and sp-forward pairs, mamba2_130m's
 tp-forward pair, gemma_2b's tp-forward and dp-forward pairs, hubert_xlarge's
 tp-forward pair, internvl2_26b's sp-forward pair, and granite_moe_3b's and
 mixtral_8x7b's tp-forward, tp-decode, sp-forward and ep-moe-forward pairs,
-each cell's outcome and localization held to the JAX reference's),
+each cell's outcome, localization and lint flag held to the JAX
+reference's),
 dp_grad (the port's ``Session`` proves the gradient-sync contract,
 ``Plan.grad(dp=2)``, for llama3_8b and qwen3_4b at full width, 8 layers;
 then ``spmd.dp_grad``, the program proved, runs on two gloo ranks sharing
@@ -122,11 +132,14 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import ShapeSpec, get_config, input_specs  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeDtype  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import analysis  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.dryrun import _zero_flags_from_specs  # noqa: E402
@@ -138,14 +151,16 @@ from repro_torch.parallel.ctx import ParallelCtx  # noqa: E402
 from repro_torch.parallel.sharding import cache_specs, param_specs, shard_params  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402
-from repro_torch.train.trainer import TrainConfig, local_grads, make_step_fn  # noqa: E402
+from repro_torch.train.trainer import (TrainConfig, local_grads, make_step_fn,  # noqa: E402
+                                      step_phases)
 from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map  # noqa: E402
 from repro_torch.verify import Plan, Session, run_campaign  # noqa: E402
 
 SEED = 0
-# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
+# sheet), the H100 hardware model of repro_torch.launch.analysis.
+PEAK_FLOPS = {torch.bfloat16: analysis.PEAK_FLOPS, torch.float32: analysis.PEAK_FLOPS_F32}
+PEAK_BYTES = analysis.HBM_BW
 L2_BYTES = 50 * 2**20  # H100 SXM
 # Flash attention, (allclose rtol = atol, relative RMS error).  A causal row
 # over n keys of N(0, 1) values has outputs of std about sqrt(e / n), about
@@ -291,6 +306,30 @@ CAMPAIGN_REFERENCE = {
         else ())
        for arch in ("granite_moe_3b", "mixtral_8x7b")
        for kind in ("tp-forward", "tp-decode", "sp-forward", "ep-moe-forward")},
+}
+# The injected cells of each CAMPAIGN_REFERENCE pair that the JAX reference's
+# lint tier flags baseline-free (``lint_detected``), by (arch, scenario), as
+# ``JAX_PLATFORMS=cpu PYTHONPATH=src python tests/campaign_lint_reference.py``
+# prints them from the reference's campaign on the CPU (written here as
+# data; the port's cells gave the same there).  sp-forward has no
+# all_reduce of its own to drop; the frontend prefix's and the experts'
+# all_reduces sit where only some rewrites break the sharding lints.
+_AR_LINT = ("drop_all_reduce", "duplicate_all_reduce", "wrong_collective_axis",
+            "wrong_collective_op", "wrong_replica_groups")
+CAMPAIGN_LINT = {
+    ("llama3_8b", "tp-forward"): _AR_LINT, ("llama3_8b", "tp-decode"): _AR_LINT,
+    ("llama3_8b", "sp-forward"): ("wrong_all_gather_dim",),
+    ("mamba2_130m", "tp-forward"): _AR_LINT, ("gemma_2b", "tp-forward"): _AR_LINT,
+    ("gemma_2b", "dp-forward"): (), ("hubert_xlarge", "tp-forward"): _AR_LINT,
+    ("internvl2_26b", "sp-forward"): ("duplicate_all_reduce", "wrong_collective_axis"),
+    **{(arch, kind): flagged
+       for arch in ("granite_moe_3b", "mixtral_8x7b")
+       for kind, flagged in (
+           ("tp-forward", _AR_LINT), ("tp-decode", _AR_LINT),
+           ("sp-forward", ("duplicate_all_reduce", "wrong_all_gather_dim",
+                           "wrong_collective_axis", "wrong_collective_op",
+                           "wrong_replica_groups")),
+           ("ep-moe-forward", ("duplicate_all_reduce", "wrong_collective_axis")))},
 }
 DP_SIZE = 2
 # The plans the verify phase proves at full width and depth, (arch, scenario,
@@ -954,6 +993,7 @@ def phase_prefill(cfg, model, params, gen, shape, bounds=(LOGIT_REL_RMS, LOGIT_M
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launches = counts()
+    MEASURED[f"prefill {cfg.name}"] = dt
     n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
     want = {"flash_attention": n_attn, "rmsnorm": 0, "ssd_scan": cfg.n_layers - n_attn}
     if launches != want:
@@ -1165,7 +1205,8 @@ def phase_campaign() -> None:
     """Every registered injector on each (arch, scenario) pair of
     CAMPAIGN_REFERENCE at tp 4 (dp 2); each cell's outcome must be the JAX
     reference's, localization included: a detected cell is localized
-    ("detected") or not ("mislocalized") as in the reference."""
+    ("detected") or not ("mislocalized") as in the reference; and the
+    cells the lint tier flags baseline-free must be CAMPAIGN_LINT's."""
     failed = []
     for (arch, kind), want in CAMPAIGN_REFERENCE.items():
         t0 = time.perf_counter()
@@ -1173,12 +1214,13 @@ def phase_campaign() -> None:
         seconds = time.perf_counter() - t0
         got = {c.injector: c.outcome for c in rep.cells}
         localized = sum(c.localized for c in rep.cells)
+        lint = tuple(sorted(c.injector for c in rep.cells if c.lint_detected))
         emit("campaign", arch=arch, tp=TP_SIZE, dp=DP_SIZE, scenario=kind,
              detected=rep.detected,
              missed=rep.missed, false_positives=rep.false_positives, localized=localized,
-             cells=got, seconds=seconds)
-        if got != want or not rep.ok:
-            failed.append((arch, kind, got))
+             cells=got, lint_detected=lint, seconds=seconds)
+        if got != want or not rep.ok or lint != CAMPAIGN_LINT[arch, kind]:
+            failed.append((arch, kind, got, lint))
     if failed:
         raise AssertionError(f"campaign cells differ from the reference: {failed}")
 
@@ -1716,15 +1758,22 @@ def phase_train() -> dict:
     step = make_step_fn(model, tcfg)
     reset_counts()
     losses, gnorms, times = [], [], []
-    for batch in batches:
+    for i, batch in enumerate(batches):
+        if i == len(batches) - 1:  # the last step's own peak, its arguments included
+            phase_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params, opt, metrics = step(params, opt, batch)
         times.append(_sync_s(t0))
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
     launches = counts()
+    step_peak = torch.cuda.max_memory_allocated() - held
+    peak = max(phase_peak, torch.cuda.max_memory_allocated())
     s_step = float(np.median(times[1:]))
     tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    MEASURED["train"] = {"s_per_step": s_step, "forward_backward_s": grads_s,
+                         "peak_gib": peak / 2**30, "step_peak_gib": step_peak / 2**30}
     zero = sorted(k for k, n in norms.items() if not (math.isfinite(n) and n > 0))
     emit("train", arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, impl="reference",
          batch=list(TRAIN_BATCH), steps=TRAIN_STEPS, params_b=sum(
@@ -1734,8 +1783,8 @@ def phase_train() -> dict:
          grad_norms=gnorms, kernel_path_loss=kernel_loss,
          first_loss_diff=abs(losses[0] - kernel_loss), loss_bound=TRAIN_LOSS_BOUND,
          grad_leaves=len(norms), zero_or_nonfinite_grad_leaves=zero,
-         held_before_init_gib=held / 2**30,
-         peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+         held_before_init_gib=held / 2**30, peak_gib=peak / 2**30,
+         step_peak_gib=step_peak / 2**30, launches=launches)
     del model, params, opt, batches
     torch.cuda.empty_cache()
     if zero:
@@ -2042,6 +2091,214 @@ def _leaves(tree):
         yield tree
 
 
+# The lint tier on the card's host: dense archs at full width with
+# LINT_LAYERS layers, one device and tp 4, and sequence-parallel at tp 4
+# (all seven dense archs took 17.7 s on an H100 machine's host, in a run of
+# 999 s; cut to four, gemma_2b's GeGLU and chatglm3_6b's padded KV heads
+# among them; tests/test_torch_lint.py lints six at every degree).
+LINT_ARCHS = ("llama3_8b", "qwen3_4b", "chatglm3_6b", "gemma_2b")
+LINT_LAYERS = 2
+# The dry run's cells, one of each kind, on the 16x16 production mesh at full
+# depth (the reference's flags).
+DRYRUN_CELLS = (("qwen3_4b", "train_4k", {}), ("llama3_8b", "prefill_32k", {}),
+                ("llama3_405b", "decode_32k", {"gather_weights": True}))
+# What the train and prefill phases measured, for the roofline phase.
+MEASURED: dict = {}
+# The train step's estimated peak (dryrun.memory_estimate: MemTracker over a
+# fake run, the arguments included, each storage once) over the peak the
+# allocator reads over the train phase's last step (its arguments included):
+# 3x the first card reading's |log ratio| on either side, 64.85 / 63.39 GiB =
+# 1.0229 (H100 80GB HBM3, 700 W): a peak that left out or doubled the f32
+# moments (0.55x or 1.5x) fails.
+PEAK_EST_RATIO = (0.93, 1.07)
+
+
+def phase_lint() -> None:
+    """The port's lint tier (``repro_torch.analysis``) on single traced
+    graphs: each of LINT_ARCHS lints with no error and no warning at tp 1,
+    at tp 4 and sequence-parallel at tp 4; llama3_8b's tp-4 graph with its
+    first layer's all_reduce dropped is flagged, the top finding a
+    missing_all_reduce at a line of the model code; the rule registry's
+    static check (``rulecheck``) is clean.  Host seconds."""
+    from repro_torch.analysis import check_registry, run_lints, trace_lint_unit, unit_context
+    from repro_torch.core.inject import DEFAULT_INJECTORS
+
+    failed = []
+    for arch in LINT_ARCHS:
+        for tp, sp in ((1, False), (TP_SIZE, False), (TP_SIZE, True)):
+            t0 = time.perf_counter()
+            unit = trace_lint_unit(arch, tp, sp=sp, layers=LINT_LAYERS)
+            rep = run_lints(unit_context(unit))
+            emit("lint", arch=arch, tp=tp, sp=sp, layers=LINT_LAYERS, ok=rep.ok,
+                 errors=rep.errors, warnings=rep.warnings, passes=len(rep.passes),
+                 nodes=len(unit.graph.nodes), seconds=time.perf_counter() - t0)
+            if not rep.ok or rep.errors or rep.warnings:
+                failed.append(f"{arch} tp {tp} sp {sp}: {rep.summary()}")
+    unit = trace_lint_unit("llama3_8b", TP_SIZE, layers=LINT_LAYERS)
+    inj = DEFAULT_INJECTORS.get("drop_all_reduce")(unit.graph, index=1)
+    rep = run_lints(unit_context(unit.mutate(lambda g: inj.graph)))
+    top = rep.findings[0] if rep.findings else None
+    localized = (top is not None and top.category == "missing_all_reduce"
+                 and re.fullmatch(r"(model|attention|mlp|modules)\.py:\d+", top.src or ""))
+    emit("lint", arch="llama3_8b", tp=TP_SIZE, inject="drop_all_reduce", site=inj.site,
+         ok=rep.ok, findings=[{"pass": f.pass_name, "category": f.category, "op": f.op,
+                               "src": f.src} for f in rep.findings[:3]],
+         localized=bool(localized))
+    if rep.ok or not localized:
+        failed.append(f"drop_all_reduce on llama3_8b tp {TP_SIZE}: {rep.summary()}")
+    rc = check_registry()
+    emit("lint", rulecheck_ok=rc.ok, rules=rc.num_rules, ops=rc.num_ops,
+         dead_rules=rc.dead_rules, orphan_kinds=rc.orphan_kinds, drift=rc.drift)
+    if not rc.ok:
+        failed.append(rc.summary())
+    if failed:
+        raise AssertionError(f"lint phase: {failed}")
+
+
+def phase_dryrun(card: str) -> None:
+    """The dry run on the card's host: each of DRYRUN_CELLS traced under a
+    fake process group over the 16x16 mesh with fake tensors, at full
+    depth.  Per device: memory, the roofline terms under the H100 model, the
+    dominant term and the useful-FLOP ratio.  Checks: every cell ends ok,
+    no device memory is taken, and the train cell's useful-FLOP ratio is at
+    most 1 (with remat the IR counts more than 6·N·D: a ratio above 1 means
+    a loop's multiplicity was lost)."""
+    # run by host_phases in a process that has not touched the card: it must
+    # not start to (or, run alone after the card is in use, take memory)
+    touched = torch.cuda.is_initialized()
+    held = torch.cuda.memory_allocated() if touched else 0
+    failed = []
+    for arch, shape, kw in DRYRUN_CELLS:
+        res = dryrun.run_cell(arch, shape, **kw)
+        roof = res.get("roofline", {})
+        emit("dryrun", arch=arch, shape=shape, mesh=res["mesh"], flags=kw,
+             status=res["status"], memory=res.get("memory"),
+             **{k: roof.get(k) for k in ("compute_s", "memory_s", "memory_s_pallas",
+                                         "collective_s", "dominant", "useful_flop_ratio",
+                                         "roofline_fraction_pallas")},
+             ir=res.get("ir"), collective_wire_bytes=res.get("collective_wire_bytes"),
+             trace_s=res.get("trace_s"), memory_est_s=res.get("memory_s"),
+             seconds=res["wall_s"], error=res.get("error"), card=card)
+        if res["status"] != "ok":
+            failed.append(f"{arch} {shape}: {res.get('error')}")
+        elif SHAPES[shape].kind == "train" and not roof["useful_flop_ratio"] <= 1:
+            failed.append(f"{arch} {shape}: useful_flop_ratio {roof['useful_flop_ratio']}")
+    if torch.cuda.is_initialized() != touched or (
+            touched and torch.cuda.memory_allocated() != held):
+        failed.append("the dry run used the card")
+    if failed:
+        raise AssertionError(f"dryrun phase: {failed}")
+
+
+def phase_roofline(card: str) -> None:
+    """The H100 roofline held to the card: the port's ``collect_ir_stats``
+    and ``roofline_terms`` on two one-device programs the earlier phases
+    timed, the forward and backward of qwen3_4b's train step
+    (``local_grads``: bf16, batch TRAIN_BATCH, the reference path, remat
+    off, as the train phase times it; the in-place AdamW after it adds no
+    materialized op to the bound) and its prefill of (2, 1024) through K1
+    (the memory term with the kernels' regions on chip).  Each measured
+    time must be at least its roofline bound.  Prints model_flops /
+    PEAK_FLOPS / measured, and the whole step's estimated peak memory
+    (``dryrun.memory_estimate``) against the peak of the train phase's last
+    step, within PEAK_EST_RATIO."""
+    cfg = get_config("qwen3_4b")
+    model = Model(cfg, impl="reference", device="cpu")
+    params = model.param_shapes()
+    failed = []
+    B, S = TRAIN_BATCH
+    tcfg = TrainConfig(opt=TRAIN_OPT, remat=False)
+    batch = input_specs(cfg, ShapeSpec("train", S, B, "train"))
+    opt = {"m": dryrun._f32_like(params), "v": dryrun._f32_like(params),
+           "step": ShapeDtype((), torch.int32)}
+    t0 = time.perf_counter()
+    ir = analysis.collect_ir_stats(step_phases(model, tcfg)[0], (params, batch), {},
+                                   grad=True)
+    trace_s = time.perf_counter() - t0
+    mf = 6.0 * cfg.active_param_count() * B * S
+    roof = analysis.roofline_terms(ir, model_flops_per_device=mf)
+    t0 = time.perf_counter()
+    est = dryrun.memory_estimate(make_step_fn(model, tcfg), (params, opt, batch), grad=True)
+    measured = MEASURED["train"]
+    fb_s = measured["forward_backward_s"]
+    emit("roofline", program="qwen3_4b train step's forward and backward",
+         batch=list(TRAIN_BATCH), measured_s=fb_s, bound_s=roof["bound_s"],
+         measured_over_bound=fb_s / roof["bound_s"], step_s=measured["s_per_step"],
+         **{k: roof[k] for k in ("compute_s", "memory_s", "collective_s", "dominant",
+                                 "useful_flop_ratio")},
+         ir_dot_flops=ir["ir_dot_flops"], ir_ew_flops=ir["ir_ew_flops"],
+         ir_hbm_bytes=ir["ir_hbm_bytes"], model_flops=mf,
+         model_flops_fraction=mf / analysis.PEAK_FLOPS / fb_s,
+         estimated_peak_gib=(est["peak_bytes"] / 2**30 if est["peak_bytes"] else None),
+         measured_step_peak_gib=measured["step_peak_gib"],
+         estimated_over_measured=(est["peak_bytes"] / 2**30 / measured["step_peak_gib"]
+                                  if est["peak_bytes"] else None),
+         peak_bound=PEAK_EST_RATIO, peak_note=est.get("peak_note"),
+         trace_s=trace_s, memory_est_s=time.perf_counter() - t0, card=card)
+    if not fb_s >= roof["bound_s"] > 0:
+        failed.append(f"train step's forward and backward {fb_s} s under its bound "
+                      f"{roof['bound_s']} s")
+    if est["peak_bytes"] is None or not (
+            PEAK_EST_RATIO[0] <= est["peak_bytes"] / 2**30 / measured["step_peak_gib"]
+            <= PEAK_EST_RATIO[1]):
+        failed.append(f"train step's estimated peak {est['peak_bytes']} B against "
+                      f"{measured['step_peak_gib']} GiB measured, bound {PEAK_EST_RATIO}: "
+                      f"{est.get('peak_note')}")
+    shape = (2, 1024)
+    batch = input_specs(cfg, ShapeSpec("prefill", shape[1], shape[0], "prefill"))
+    t0 = time.perf_counter()
+    ir = analysis.collect_ir_stats(lambda p, b: model.forward(p, b), (params, batch), {})
+    mf = 2.0 * cfg.active_param_count() * shape[0] * shape[1]
+    roof = analysis.roofline_terms(ir, model_flops_per_device=mf)
+    measured_s = MEASURED[f"prefill {cfg.name}"]
+    emit("roofline", program="qwen3_4b prefill through K1", batch=list(shape),
+         measured_s=measured_s, bound_s=roof["bound_s_pallas"],
+         measured_over_bound=measured_s / roof["bound_s_pallas"],
+         **{k: roof[k] for k in ("compute_s", "memory_s", "memory_s_pallas",
+                                 "collective_s", "dominant", "useful_flop_ratio")},
+         ir_dot_flops=ir["ir_dot_flops"], ir_ew_flops=ir["ir_ew_flops"],
+         ir_hbm_bytes=ir["ir_hbm_bytes"], ir_kernel_saved_bytes=ir["ir_kernel_saved_bytes"],
+         model_flops=mf, model_flops_fraction=mf / analysis.PEAK_FLOPS / measured_s,
+         trace_s=time.perf_counter() - t0, card=card)
+    if not measured_s >= roof["bound_s_pallas"] > 0:
+        failed.append(f"prefill {measured_s} s under its bound {roof['bound_s_pallas']} s")
+    if failed:
+        raise AssertionError(f"roofline phase: {failed}")
+
+
+def run_host_phases(card: str) -> None:
+    """The phases that run on the host only (lint, dryrun), in the child
+    process ``host_phases`` starts."""
+    phase_lint()
+    phase_dryrun(card)
+
+
+@contextlib.contextmanager
+def host_phases(card: str):
+    """The host-only phases in a child process, which runs while the kernel
+    phases time the card (those time on the device, with CUDA events);
+    ``finish`` prints its lines and raises if it failed.  The child is
+    killed if the caller fails first."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.run_host_phases({card!r})"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    def finish() -> None:
+        out, _ = proc.communicate(timeout=900)
+        sys.stdout.write(out)
+        sys.stdout.flush()
+        if proc.returncode:
+            raise AssertionError(f"host phases (lint, dryrun) exit {proc.returncode}: "
+                                 f"{out[-2000:]}")
+    try:
+        yield finish
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2049,29 +2306,66 @@ def card_name() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def _roofline_alone(gen, card: str) -> None:
+    """The roofline phase with the two phases whose times it reads: the
+    train phase and qwen3_4b's prefill of (2, 1024)."""
+    phase_train()
+    with torch.inference_mode():
+        cfg = get_config("qwen3_4b")
+        model = Model(cfg, device="cuda")
+        phase_prefill(cfg, model, model.init(gen), gen, (2, 1024))
+        del model
+    torch.cuda.empty_cache()
+    phase_roofline(card)
+
+
 def run_alone(name: str) -> None:
     """Build the kernels and run one phase on its own (a planted fault's
-    check of the phase that should catch it); raises if the phase fails."""
+    check of the phase that should catch it); raises if it fails."""
     build.build_all()
-    if name == "verify":
-        phase_verify(card_name())
-    else:
-        globals()[f"phase_{name}"](torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    card = card_name()
+    phases = {
+        "dp_forward": lambda: phase_dp_forward(gen),
+        "tp_forward": lambda: phase_tp_forward(gen),
+        "sp_forward": lambda: phase_sp_forward(gen),
+        "tp_decode": lambda: phase_tp_decode(gen),
+        "cp_decode": lambda: phase_cp_decode(gen),
+        "dp_grad_run": lambda: phase_dp_grad_run(gen),
+        "tpdp_forward": lambda: phase_tpdp_forward(gen),
+        "pipeline_forward": lambda: phase_pipeline_forward(gen),
+        "verify": lambda: phase_verify(card),
+        "dp_grad_verify": lambda: phase_dp_grad_verify(card),
+        "dryrun": lambda: phase_dryrun(card),
+        "roofline": lambda: _roofline_alone(gen, card),
+        "campaign": phase_campaign,
+        "lint": phase_lint,
+        "train": phase_train,
+        "train_parity": phase_train_parity,
+        "tpdp_train": phase_tpdp_train,
+        "train_launcher": phase_train_launcher,
+        "serve_verified": phase_serve_verified,
+    }
+    phases[name]()
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gen_ssm = torch.Generator(device="cuda").manual_seed(SEED + 1)  # the SSM phases'
     card = card_name()
-    with torch.inference_mode():
-        phase_device()
-        phase_resources()
-        fa_rows = phase_flash(gen)
-        rn_row = phase_rmsnorm(gen)
-        ssd_row = phase_ssd(gen_ssm)
+    # the lint tier and the dry run run on the host, beside the kernel phases
+    with host_phases(card) as finish_host_phases:
+        with torch.inference_mode():
+            phase_device()
+            phase_resources()
+            fa_rows = phase_flash(gen)
+            rn_row = phase_rmsnorm(gen)
+            ssd_row = phase_ssd(gen_ssm)
+        finish_host_phases()
     # training runs with grad enabled, outside inference_mode
     train_launches = phase_train()
     parity_launches = phase_train_parity()
@@ -2085,6 +2379,8 @@ def main() -> int:
         phase_serve(cfg, model, params)
         del model, params
         torch.cuda.empty_cache()
+    phase_roofline(card)  # the train step's and this prefill's times against the model
+    with torch.inference_mode():
         dense_launches = {}
         for arch in ("qwen1_5_4b", "chatglm3_6b", "gemma_2b"):
             cfg = get_config(arch)
@@ -2209,6 +2505,7 @@ def main() -> int:
         row["launches_by_path"] = {path: [c[row["name"]] for c in n] if isinstance(n, list)
                                    else n[row["name"]] for path, n in paths.items()}
     extra = ("launches_by_path", *(f"{name}_shape" for name in fa_rows if name != "qwen3_4b"))
+    emit("run", seconds=time.perf_counter() - t_run, card=card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

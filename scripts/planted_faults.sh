@@ -99,6 +99,21 @@
 #                         softmax without rescaling it to the global max
 #                         (corr = 1, models/attention.py); the cp_decode
 #                         phase must fail
+# Faults in the lint tier, the roofline and the dry run:
+#   lint_pass_disabled    the partial-leak lint pass finds nothing
+#                         (analysis/lints.py): the lint phase must fail (the
+#                         dropped all_reduce goes unflagged), and the
+#                         campaign phase, run on its own after
+#                         chip_smoke.py, finds lint_detected unlike the
+#                         reference's
+#   roofline_peak_div100  the H100 model's bf16 peak is divided by 100
+#                         (launch/analysis.py): the train step's compute
+#                         bound passes its measured time, so the roofline
+#                         phase must fail
+#   dryrun_micro_mult_dropped  ops in the microbatch loop lose its trip
+#                         count in count mode (scope.py): the train cell's
+#                         IR FLOPs fall 8x, its useful-FLOP ratio passes 1,
+#                         so the dryrun phase must fail
 set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
@@ -109,7 +124,8 @@ tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_sw
 sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one \
 pipeline_ring_stalled tpdp_psum_on_data_group train_kernel_path_unguarded \
 loss_label_psum_dropped dp_grad_psum_dropped dp_grad_mean_undivided \
-dp_grad_psum_dropped_rank cp_merge_uncorrected}
+dp_grad_psum_dropped_rank cp_merge_uncorrected lint_pass_disabled roofline_peak_div100 \
+dryrun_micro_mult_dropped}
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
@@ -230,6 +246,18 @@ for name in $faults; do
       file=models/attention.py phase=cp_decode alone=
       old='corr = torch.exp(m - m_g)'
       new='corr = torch.ones_like(m)' ;;
+    lint_pass_disabled)
+      file=analysis/lints.py phase=lint alone=campaign
+      old='    for leak in ctx.placement.leaks:'
+      new='    for leak in ctx.placement.leaks[:0]:' ;;
+    roofline_peak_div100)
+      file=launch/analysis.py phase=roofline alone=
+      old='PEAK_FLOPS = 989e12  # dense bf16 FLOP/s a GPU'
+      new='PEAK_FLOPS = 989e12 / 100  # dense bf16 FLOP/s a GPU' ;;
+    dryrun_micro_mult_dropped)
+      file=scope.py phase=dryrun alone=
+      old='    if loop not in _counting or n <= 1 or not fx_traceback.has_preserved_node_meta():'
+      new='    if loop not in _counting or n <= 1 or loop == "micro" or not fx_traceback.has_preserved_node_meta():' ;;
     *) echo "unknown fault $name"; exit 2 ;;
   esac
   dir=$work/$name

@@ -555,13 +555,17 @@ class Tracer:
         self.group_axes = group_axes or {}
         self._scalar_val: dict[int, Any] = {}
         self._const_cache: dict[tuple, int] = {}
-        self._ctx = ("", "", None)  # src, scope, layer of the node being lowered
+        # src, scope, layer and count-mode multiplicity of the node being lowered
+        self._ctx = ("", "", None, 1)
         self._c10d = _c10d_ops()
         # silu's input -> its logistic, the residual silu's backward reuses;
         # the tanh gelu's input -> its tanh and cdf; softplus' -> its value
         self._logistic: dict[int, int] = {}
         self._gelu: dict[int, tuple] = {}
         self._softplus_out: dict[int, int] = {}
+        # (ids, rows) -> the wrapped index vector a take gathers with, which
+        # its transpose scatters with
+        self._take_index: dict[tuple, int] = {}
 
     # -- leaves ---------------------------------------------------------------
     def add_const(self, arr: np.ndarray, dtype: str) -> int:
@@ -608,7 +612,9 @@ class Tracer:
                 and inputs and all(i in self._scalar_val for i in inputs)):
             val = np.asarray(fn(*[self._scalar_val[i] for i in inputs]))
             return self.add_const(val.astype(np.bool_ if dt == "bool" else dt), dt)
-        src, scope, layer = self._ctx
+        src, scope, layer, mult = self._ctx
+        if mult != 1:  # traced in a counted loop (repro_torch.scope.counting)
+            params = {**(params or {}), "mult": mult}
         return self.g.add(op, inputs, tuple(shape), dt, params, src=src, layer=layer,
                           scope=scope)
 
@@ -872,6 +878,10 @@ class Tracer:
                              {"dimension_numbers": ((lc, rc), (lb, rb))})
         if packet is getattr(torch.ops.repro_torch, "dynamic_slice", None):
             return self._dynamic_slice(args, shape, dtype)
+        if packet is getattr(torch.ops.repro_torch, "take", None):
+            return self._take(args, shape, dtype)
+        if packet is getattr(torch.ops.repro_torch, "take_transpose", None):
+            return self._take_transpose_op(args, shape, dtype)
         if packet is getattr(torch.ops.repro_torch, "top_k", None):
             # lax.top_k: one node for each output, the values and the indices
             x, k = args
@@ -946,9 +956,10 @@ class Tracer:
 
     # -- helpers for the cases above -------------------------------------------
     def _node_ctx(self, node):
-        scope = (node.meta.get("custom") or {}).get("scope", "")
+        custom = node.meta.get("custom") or {}
+        scope = custom.get("scope", "")
         src = node.meta.get("stack_trace") or ""
-        return src, scope, self.layer_tag_fn(scope)
+        return src, scope, self.layer_tag_fn(scope), custom.get("mult", 1)
 
     def _binary(self, op, node, args, kwargs, shape, dtype):
         a = self.operand(args[0], dtype)
@@ -988,6 +999,53 @@ class Tracer:
         starts[axis] = self.emit("select", [lt, start, wrapped], (), idt)
         return self.emit("dynamic_slice", [x] + starts, shape, dtype,
                          {"slice_sizes": tuple(shape)})
+
+    def _take_index_vector(self, ids, rows: int) -> int:
+        """``jnp.take``'s indices: a negative id wrapped once (``select(i <
+        0, i, i + rows)``) and given a trailing index-vector dim."""
+        key = (ids, rows)
+        if key not in self._take_index:
+            n = self.g[ids]
+            idt = _DTYPES_BY_NAME[n.dtype]
+            neg = self.emit("lt", [ids, self.scalar(0, idt)], n.shape, torch.bool)
+            plus = self.emit("add", [ids, self.scalar(rows, idt)], n.shape, idt)
+            w = self.emit("select", [neg, ids, plus], n.shape, idt)
+            iv = n.shape + (1,)
+            self._take_index[key] = self.emit(
+                "broadcast", [w], iv, idt,
+                {"shape": iv, "broadcast_dimensions": tuple(range(len(n.shape)))})
+        return self._take_index[key]
+
+    def _take(self, args, shape, dtype):
+        """``jnp.take(table, ids, axis=0)``: one ``gather`` whose fill is
+        NaN, with lax's dimension numbers."""
+        table, ids = args
+        row = self.g[table].shape[1:]
+        k = len(self.g[ids].shape)
+        dn = (f"GatherDimensionNumbers(offset_dims={tuple(range(k, k + len(row)))}, "
+              f"collapsed_slice_dims=(0,), start_index_map=(0,), operand_batching_dims=(), "
+              f"start_indices_batching_dims=())")
+        iv = self._take_index_vector(ids, self.g[table].shape[0])
+        return self.emit("gather", [table, iv], shape, dtype,
+                         {"dimension_numbers": dn, "fill_value": math.nan,
+                          "indices_are_sorted": False, "slice_sizes": (1, *row),
+                          "unique_indices": False})
+
+    def _take_transpose_op(self, args, shape, dtype):
+        """``take``'s transpose as JAX's: a zero table and one
+        ``scatter_add`` at the forward's index vector."""
+        g, ids, rows = args
+        iv = self._take_index_vector(ids, rows)
+        zero = self.broadcast_to(self.scalar(0, dtype), shape)
+        k = len(self.g[ids].shape)
+        window = tuple(range(k, len(self.g[g].shape)))
+        dn = (f"ScatterDimensionNumbers(update_window_dims={window}, "
+              f"inserted_window_dims=(0,), scatter_dims_to_operand_dims=(0,), "
+              f"operand_batching_dims=(), scatter_indices_batching_dims=())")
+        return self.emit("scatter_add", [zero, iv, self.convert(g, dtype)], shape, dtype,
+                         {"dimension_numbers": dn, "indices_are_sorted": False,
+                          "slice_sizes": (), "unique_indices": False,
+                          "update_consts": ()})
 
     def _repeat(self, x, reps, shape, dtype):
         """``jnp.repeat(x, r, axis=d)`` for a unit dim ``d`` (where torch's
@@ -1354,7 +1412,10 @@ def _program(flat_fn, fakes, grad: bool):
     that only the lowering reads."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    with fx_traceback.preserve_node_meta(), _SourceMode(grad=grad):
+    from repro_torch.scope import recompute_under
+
+    mode = _SourceMode(grad=grad)
+    with fx_traceback.preserve_node_meta(), mode, recompute_under(mode):
         gm = make_fx(flat_fn if grad else torch.func.functionalize(flat_fn),
                      tracing_mode="fake")(*fakes)
     if grad:
@@ -1677,6 +1738,7 @@ def trace_sharded(
     layer_tag_fn: Callable[[str], Optional[int]] = default_layer_tag,
     name: str = "dist",
     grad: bool = False,
+    ctx_kw: Optional[dict] = None,
 ) -> tuple[Graph, list[int], list[int]]:
     """Trace the **per-rank** program of a sharded function, with its
     collectives explicit.
@@ -1687,8 +1749,8 @@ def trace_sharded(
     JAX package's ``abstract_mesh(sizes, names)``), the fake process group
     holds their product with one subgroup per axis, and ``fn`` receives
     ``ParallelCtx.from_mesh`` over it (model axis ``"model"``, data axis
-    ``"data"``).  Each rank is a traced 0-d int64 input, emitted as
-    ``axis_index`` over its axis; each collective carries the axis of the
+    ``"data"``, unless ``ctx_kw`` passes ``from_mesh`` others).  Each rank
+    is a traced 0-d int64 input, emitted as ``axis_index`` over its axis; each collective carries the axis of the
     group it runs on.  ``args`` are *global* shapes; ``in_specs`` holds one
     spec tree per argument, and each input node carries the per-rank shape
     its spec gives over every axis.  In-place writes and ``grad`` as in
@@ -1724,7 +1786,8 @@ def trace_sharded(
             if dmesh is None:
                 ctx = ParallelCtx.tensor_parallel(size, rank=ranks[0], axis=axis)
             else:
-                ctx = ParallelCtx.from_mesh(dmesh, ranks=dict(zip(rank_axes, ranks)))
+                ctx = ParallelCtx.from_mesh(dmesh, ranks=dict(zip(rank_axes, ranks)),
+                                            **(ctx_kw or {}))
             return tree_leaves(fn(ctx, *tree_unflatten(treedef, flat)))
 
         gm = _make_fx(flat_fn, fakes, grad)

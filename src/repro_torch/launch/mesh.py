@@ -22,14 +22,18 @@ def make_mesh(shape: tuple, names: tuple, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
-    """16x16 single-pod (256 ranks) or 2x16x16 multi-pod (512 ranks) mesh.
+def production_mesh_sizes(*, multi_pod: bool = False) -> dict:
+    """The production mesh as an ordered ``{axis: size}``: 16x16 single-pod
+    (256 ranks) or 2x16x16 multi-pod (512 ranks).  Axes: ("data", "model") /
+    ("pod", "data", "model").  DP runs over pod+data, TP/EP over model."""
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
 
-    Axes: ("data", "model") / ("pod", "data", "model").  DP runs over
-    pod+data, TP/EP over model."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    names = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, names, device_type)
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The production mesh (:func:`production_mesh_sizes`) over the running
+    ranks."""
+    sizes = production_mesh_sizes(multi_pod=multi_pod)
+    return make_mesh(tuple(sizes.values()), tuple(sizes), device_type)
 
 
 def make_debug_mesh(tp: int = 2, dp: int = 1, device_type: str = "cuda"):
@@ -38,5 +42,7 @@ def make_debug_mesh(tp: int = 2, dp: int = 1, device_type: str = "cuda"):
 
 
 def dp_axes(mesh) -> tuple:
-    """The data-parallel axes of a mesh (pod folds into DP)."""
-    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+    """The data-parallel axes of a mesh, a ``DeviceMesh`` or an ordered
+    ``{axis: size}`` (pod folds into DP)."""
+    names = mesh if isinstance(mesh, dict) else mesh.mesh_dim_names
+    return tuple(a for a in names if a in ("pod", "data"))

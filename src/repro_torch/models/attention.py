@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.scope import loop, named_scope
 
 from .modules import apply_rope, einsum_f32, linear, linear_init, rmsnorm, rmsnorm_init
 
@@ -71,33 +72,33 @@ def chunked_attention(
     kc = k.reshape(B, Hkv, n_chunks, chunk, hd).permute(2, 0, 1, 3, 4)
     vc = v.reshape(B, Hkv, n_chunks, chunk, hd).permute(2, 0, 1, 3, 4)
     q_pos = q_offset + torch.arange(Sq, device=dev)
-
-    neg = -1e30
-    m = torch.full((B, Hkv, G, Sq), neg, dtype=torch.float32, device=dev)
-    denom = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hkv, G, Sq, hd), dtype=torch.float32, device=dev)
-    for ci in range(n_chunks):
-        kb, vb = kc[ci], vc[ci]
-        s = einsum_f32("bhgqd,bhkd->bhgqk", qg, kb) * scale
-        k_pos = k_offset + ci * chunk + torch.arange(chunk, device=dev)
-        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
-        if causal:
-            mask = mask & (q_pos[:, None] >= k_pos[None, :])
-        if kv_len is not None:
-            mask = mask & (k_pos[None, :] < kv_len)
-        if pad:
-            mask = mask & (ci * chunk + torch.arange(chunk, device=dev) < Sk)[None, :]
-        s = torch.where(mask[None, None, None], s, neg)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        denom = denom * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + einsum_f32("bhgqk,bhkd->bhgqd", p.to(vb.dtype), vb)
-        m = m_new
-    if with_stats:
-        return acc, m, denom
-    out = acc / denom[..., None].clamp_min(1e-30)
-    return out.reshape(B, Hq, Sq, hd).to(q.dtype)
+    with named_scope("flash_attn"):  # the region K1 computes on the kernel path
+        neg = -1e30
+        m = torch.full((B, Hkv, G, Sq), neg, dtype=torch.float32, device=dev)
+        denom = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hkv, G, Sq, hd), dtype=torch.float32, device=dev)
+        for ci in loop(n_chunks, "chunk"):
+            kb, vb = kc[ci], vc[ci]
+            s = einsum_f32("bhgqd,bhkd->bhgqk", qg, kb) * scale
+            k_pos = k_offset + ci * chunk + torch.arange(chunk, device=dev)
+            mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            if kv_len is not None:
+                mask = mask & (k_pos[None, :] < kv_len)
+            if pad:
+                mask = mask & (ci * chunk + torch.arange(chunk, device=dev) < Sk)[None, :]
+            s = torch.where(mask[None, None, None], s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            denom = denom * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + einsum_f32("bhgqk,bhkd->bhgqd", p.to(vb.dtype), vb)
+            m = m_new
+        if with_stats:
+            return acc, m, denom
+        out = acc / denom[..., None].clamp_min(1e-30)
+        return out.reshape(B, Hq, Sq, hd).to(q.dtype)
 
 
 def attn_fwd(cfg, ctx: ParallelCtx, p, x, positions, *, impl: str = "reference",

@@ -36,12 +36,13 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.parallel.collectives import vp_embed, vp_embed_sp
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.scope import named_scope
-from repro_torch.tree import tree_map
+from repro_torch.scope import counted, named_scope, traced_recompute, trips
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache, write_index
 from .mlp import mlp_fwd, mlp_init, moe_dense_fwd, moe_ep_fwd, moe_fwd, moe_init
-from .modules import _init, dynamic_slice_in_dim, linear, linear_init, rmsnorm, rmsnorm_init
+from .modules import (_init, dynamic_slice_in_dim, linear, linear_init, rmsnorm,
+                      rmsnorm_init, take)
 from .ssm import ssm_decode, ssm_fwd, ssm_init, ssm_init_cache
 
 IMPLS = ("kernel", "reference")
@@ -66,7 +67,8 @@ def _tree_index(tree, i: int):
 
 class Model:
     def __init__(self, cfg: ArchConfig, ctx: ParallelCtx = ParallelCtx.single(),
-                 impl: str = "kernel", moe_impl: str = "capacity", device="cuda"):
+                 impl: str = "kernel", moe_impl: str = "capacity", device="cuda",
+                 weight_gather=None):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         if moe_impl not in MOE_IMPLS:
@@ -76,8 +78,25 @@ class Model:
         self.ctx = ctx
         self.impl = impl
         self.moe_impl = moe_impl
+        # weight_gather: a tuple over block positions of trees of gather dims
+        # (-1 = resident).  Weights sharded over (model x data) are gathered
+        # over the data axis a block at a time in the decode step, which
+        # bounds resident weight memory to 1/(tp*dp) plus one gathered block
+        # (serving a giant model), as in the JAX package.
+        self.weight_gather = weight_gather
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def _maybe_gather_block(self, bparams_j, j: int):
+        """Block position ``j``'s parameters with each leaf that
+        ``weight_gather`` names gathered over ``"data"`` along its dim."""
+        if self.weight_gather is None:
+            return bparams_j
+        leaves, treedef = tree_flatten(bparams_j)
+        dims = tree_flatten(self.weight_gather[j])[0]
+        return tree_unflatten(treedef, [
+            a if dim is None or dim < 0 else self.ctx.all_gather(a, "data", dim)
+            for a, dim in zip(leaves, dims)])
 
     # ------------------------------------------------------------------ params
     def init(self, generator: torch.Generator) -> dict:
@@ -150,24 +169,20 @@ class Model:
         return x
 
     def _embed_tokens(self, params, ids, allow_sp: bool = True):
-        """Single device: row lookup with ``jnp.take``'s default semantics (a
+        """Single device: ``modules.take``, ``jnp.take``'s row lookup (a
         negative id counts from the end, an id out of range gives a row of
-        NaN).  Under TP: the vocab-parallel lookup ``vp_embed`` in a
-        ``vp_embed`` scope, the region the verifier's meta rule trusts (under
-        SP, unless ``allow_sp`` is off, ``vp_embed_sp``, which scopes the
-        partial lookup and leaves the sequence reduce_scatter outside)."""
+        NaN, filled inside the lookup as JAX's gather fills).  Under TP: the
+        vocab-parallel lookup ``vp_embed`` in a ``vp_embed`` scope, the region
+        the verifier's meta rule trusts (under SP, unless ``allow_sp`` is off,
+        ``vp_embed_sp``, which scopes the partial lookup and leaves the
+        sequence reduce_scatter outside)."""
         table = params["embed"]["w"]
         if self.ctx.tp_axis:
             if self.ctx.sp and allow_sp:
                 return vp_embed_sp(table, ids, self.ctx)
             with named_scope("vp_embed"):
                 return vp_embed(table, ids, self.ctx)
-        V = table.shape[0]
-        ids = torch.where(ids < 0, ids + V, ids)
-        valid = (ids >= 0) & (ids < V)
-        x = table[ids.clamp(0, V - 1)]
-        return torch.where(valid[..., None], x, torch.full((), float("nan"),
-                                                           dtype=x.dtype, device=x.device))
+        return take(table, ids)
 
     def _head(self, params, x):
         w = params["embed"]["w"].T if self.cfg.tie_embeddings else params["lm_head"]["w"]
@@ -194,12 +209,14 @@ class Model:
 
     def _block(self, params, x, positions, i: int, kv_out: Optional[list] = None):
         """Block ``i``: layers ``i*P .. i*P+P-1`` (P the block period), each
-        in its ``layer<li>`` scope."""
+        in its ``layer<li>`` scope.  In count mode (the dry run) one block
+        stands for every block, a checkpoint's recomputation included."""
         P = self.cfg.block_period
-        for j in range(P):
-            with named_scope(f"layer{i * P + j}"):
-                x = self._layer_fwd(_tree_index(params["blocks"][j], i), x, positions, j,
-                                    kv_out)
+        with counted(self.cfg.n_layers // P, "layer"):
+            for j in range(P):
+                with named_scope(f"layer{i * P + j}"):
+                    x = self._layer_fwd(_tree_index(params["blocks"][j], i), x, positions,
+                                        j, kv_out)
         return x
 
     def forward(self, params, batch, *, unroll: bool = False, remat: bool = False,
@@ -217,10 +234,11 @@ class Model:
         x = self._inputs_to_hidden(params, batch)
         S = x.shape[1] * (ctx.tp_size if ctx.sp else 1)
         positions = torch.arange(S, device=x.device)
-        for i in range(cfg.n_layers // cfg.block_period):
+        for i in range(trips(cfg.n_layers // cfg.block_period, "layer")):
             if remat:
-                x = torch.utils.checkpoint.checkpoint(self._block, params, x, positions, i,
-                                                      kv_out, use_reentrant=False)
+                x = torch.utils.checkpoint.checkpoint(traced_recompute(self._block), params,
+                                                      x, positions, i, kv_out,
+                                                      use_reentrant=False)
             else:
                 x = self._block(params, x, positions, i, kv_out)
         x = ctx.sp_exit(x)
@@ -275,6 +293,15 @@ class Model:
             caches.append({k: v.new_zeros((nb, *v.shape)) for k, v in c.items()})
         return tuple(caches)
 
+    def cache_specs(self, batch: int, max_len: int) -> tuple:
+        """The caches as fake tensors (shapes and dtypes, no storage):
+        ``init_cache`` under a ``FakeTensorMode``, the counterpart of
+        ``jax.eval_shape(lambda: self.init_cache(batch, max_len))``."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            return self.init_cache(batch, max_len)
+
     def decode_step(self, params, token, caches, position, *, unroll: bool = False):
         """One decode step.  token: (B,) int; position: a 0-d int64 tensor
         on the model's device (a Python int is converted).  Returns (logits
@@ -291,9 +318,11 @@ class Model:
         kv = next((c["k"] for c in caches if "k" in c), None)
         # the KV write index, once for every layer
         w = None if kv is None else write_index(position, kv.shape[3])[None]
-        for i in range(cfg.n_layers // P):
-            with named_scope(f"layer{i}"):  # the block's slices, as in JAX
-                lps = [_tree_index(params["blocks"][j], i) for j in range(P)]
+        nb = cfg.n_layers // P
+        for i in range(trips(nb, "layer")):
+            with counted(nb, "layer"), named_scope(f"layer{i}"):  # the block's slices
+                lps = [self._maybe_gather_block(_tree_index(params["blocks"][j], i), j)
+                       for j in range(P)]
                 # views into the stacked caches
                 cs = [_tree_index(caches[j], i) for j in range(P)]
                 for j in range(P):

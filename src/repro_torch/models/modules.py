@@ -73,6 +73,66 @@ def _dynamic_slice_backward(ctx, g):
 _dynamic_slice.register_autograd(_dynamic_slice_backward, setup_context=_dynamic_slice_setup)
 
 
+def _wrap_ids(ids, n: int):
+    """A negative id counts from the end once; the mask of ids in range."""
+    ids = torch.where(ids < 0, ids + n, ids)
+    return ids, (ids >= 0) & (ids < n)
+
+
+@torch.library.custom_op("repro_torch::take", mutates_args=())
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)``: rows of ``table``, a negative id
+    counting from the end once, an id out of range giving a row of NaN
+    (the gather's fill)."""
+    w, valid = _wrap_ids(ids, table.shape[0])
+    x = table[w.clamp(0, table.shape[0] - 1)]
+    return torch.where(valid[..., None], x, torch.full((), float("nan"), dtype=x.dtype,
+                                                       device=x.device))
+
+
+@_take.register_fake
+def _take_fake(table, ids):
+    return table.new_empty((*ids.shape, *table.shape[1:]))
+
+
+@torch.library.custom_op("repro_torch::take_transpose", mutates_args=())
+def _take_transpose(g: torch.Tensor, ids: torch.Tensor, rows: int) -> torch.Tensor:
+    """The transpose of ``take``: ``zeros.at[ids].add(g)`` over a table of
+    ``rows`` rows, an id out of range dropped (the scatter's drop: it adds
+    into an extra row, cut off after, so no mask selects on the host)."""
+    w, valid = _wrap_ids(ids, rows)
+    tail = g.shape[ids.ndim:]
+    out = g.new_zeros((rows + 1, *tail))
+    out.index_add_(0, torch.where(valid, w, rows).reshape(-1), g.reshape(-1, *tail))
+    return out[:rows].clone()
+
+
+@_take_transpose.register_fake
+def _take_transpose_fake(g, ids, rows):
+    return g.new_empty((rows, *g.shape[ids.ndim:]))
+
+
+def _take_setup(ctx, inputs, output):
+    table, ids = inputs
+    ctx.save_for_backward(ids)
+    ctx.rows = table.shape[0]
+
+
+def _take_backward(ctx, g):
+    (ids,) = ctx.saved_tensors
+    return _take_transpose(g, ids, ctx.rows), None
+
+
+_take.register_autograd(_take_backward, setup_context=_take_setup)
+
+
+def take(table, ids):
+    """Row lookup with ``jnp.take``'s default semantics (the verifier's
+    tracer lowers it, and its gradient, as JAX traces ``jnp.take`` and its
+    transpose: one filling ``gather``, one dropping ``scatter_add``)."""
+    return _take(table, ids)
+
+
 def dynamic_slice_in_dim(x, start, size: int, axis: int):
     """``size`` entries of ``x`` along ``axis`` from the 0-d tensor ``start``
     (a traced rank under the verifier's tracer, which lowers this op as

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import chunk_len
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.scope import loop, named_scope
 
 from .modules import _init, gated_rmsnorm, linear, linear_init, rmsnorm_init, silu
 
@@ -81,41 +82,44 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None, return_state: boo
     nc = S // Q
     f32 = torch.float32
 
-    xc = x.reshape(Bsz, nc, Q, H, P)
-    dtc = dt.reshape(Bsz, nc, Q, H).float()
-    Bc = Bm.reshape(Bsz, nc, Q, N)  # converted at each use, as in JAX
-    Cc = Cm.reshape(Bsz, nc, Q, N)
-    dA = dtc * A  # (B,nc,Q,H) log-decay per step
+    with named_scope("ssd_kernel"):  # the region K3 computes on the kernel path
+        xc = x.reshape(Bsz, nc, Q, H, P)
+        dtc = dt.reshape(Bsz, nc, Q, H).float()
+        Bc = Bm.reshape(Bsz, nc, Q, N)  # converted at each use, as in JAX
+        Cc = Cm.reshape(Bsz, nc, Q, N)
+        dA = dtc * A  # (B,nc,Q,H) log-decay per step
 
-    # within-chunk ("diagonal") term
-    L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B,nc,H,Q,Q)
-    scores = torch.einsum("bcqn,bckn->bcqk", Cc.float(), Bc.float())
-    att = scores[:, :, None, :, :] * L  # (B,nc,H,Q,K); L zero above diagonal
-    xdt = xc.float() * dtc[..., None]  # (B,nc,Q,H,P)
-    y_diag = torch.einsum("bchqk,bckhp->bcqhp", att, xdt)
+        # within-chunk ("diagonal") term
+        L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B,nc,H,Q,Q)
+        scores = torch.einsum("bcqn,bckn->bcqk", Cc.float(), Bc.float())
+        att = scores[:, :, None, :, :] * L  # (B,nc,H,Q,K); L zero above diagonal
+        xdt = xc.float() * dtc[..., None]  # (B,nc,Q,H,P)
+        y_diag = torch.einsum("bchqk,bckhp->bcqhp", att, xdt)
 
-    # per-chunk states
-    cum = torch.cumsum(dA, dim=2)  # (B,nc,Q,H)
-    decay_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
-    states = torch.einsum("bckn,bckh,bckhp->bchpn", Bc.float(), decay_end * dtc, xc.float())
+        # per-chunk states
+        cum = torch.cumsum(dA, dim=2)  # (B,nc,Q,H)
+        decay_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
+        states = torch.einsum("bckn,bckh,bckhp->bchpn", Bc.float(), decay_end * dtc, xc.float())
 
-    # inter-chunk recurrence
-    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
-    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) if init_state is None
-         else init_state.float())
-    prevs = []
-    for ci in range(nc):
-        prevs.append(s)
-        s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
-    prev = torch.stack(prevs).permute(1, 0, 2, 3, 4)  # (B,nc,H,P,N) entering each chunk
+        # inter-chunk recurrence
+        chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
+        s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) if init_state is None
+             else init_state.float())
+        prevs = []
+        for ci in loop(nc, "ssd_chunk"):
+            prevs.append(s)
+            s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
+        # (B,nc,H,P,N) entering each chunk (in count mode one chunk ran: the
+        # state it leaves stands for the later chunks')
+        prev = torch.stack(prevs + [s] * (nc - len(prevs))).permute(1, 0, 2, 3, 4)
 
-    decay_start = torch.exp(cum)  # (B,nc,Q,H)
-    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc.float(), prev, decay_start)
+        decay_start = torch.exp(cum)  # (B,nc,Q,H)
+        y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc.float(), prev, decay_start)
 
-    y = (y_diag + y_off).reshape(Bsz, S, H, P)
-    if return_state:
-        return y, s
-    return y
+        y = (y_diag + y_off).reshape(Bsz, S, H, P)
+        if return_state:
+            return y, s
+        return y
 
 
 def ssm_fwd(cfg, ctx: ParallelCtx, p, x, *, impl: str = "reference",

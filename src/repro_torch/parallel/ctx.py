@@ -109,19 +109,31 @@ def _tracked(x) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
+def _applied(out):
+    """The identity, seen by the verifier's tracer: a Function's autograd
+    node is made after the ops of its forward, so the tracer takes this
+    call to give the node the line, scope and count of the collective (its
+    backward ops then take them), where a later op would give its own."""
+    if torch.overrides.has_torch_function((out,)):
+        return torch.overrides.handle_torch_function(_applied, (out,), out)
+    return out
+
+
 def psum_op(x, group: str):
     """All-reduce sum on ``group``, differentiable as ``lax.psum``."""
-    return _Psum.apply(x, group) if _tracked(x) else _all_reduce(x, "sum", group)
+    return _applied(_Psum.apply(x, group)) if _tracked(x) else _all_reduce(x, "sum", group)
 
 
 def gather0_op(x, n: int, group: str):
     """Dim-0 all_gather, differentiable (its transpose a reduce_scatter)."""
-    return _Gather0.apply(x, n, group) if _tracked(x) else _gather0(x, n, group)
+    return (_applied(_Gather0.apply(x, n, group)) if _tracked(x)
+            else _gather0(x, n, group))
 
 
 def scatter0_op(x, n: int, group: str):
     """Dim-0 reduce_scatter, differentiable (its transpose an all_gather)."""
-    return _Scatter0.apply(x, n, group) if _tracked(x) else _scatter0(x, n, group)
+    return (_applied(_Scatter0.apply(x, n, group)) if _tracked(x)
+            else _scatter0(x, n, group))
 
 
 def _via_host(fn, x):

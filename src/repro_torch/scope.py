@@ -11,6 +11,7 @@ code keeps it on its run-time path at no cost.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 
 import torch.fx.traceback as fx_traceback
@@ -28,3 +29,90 @@ def named_scope(name: str):
     parent = current_scope()
     with fx_traceback.annotate({"scope": f"{parent}/{name}" if parent else name}):
         yield
+
+
+# -- count mode: the dry run's loops traced once, each op counted as often as
+# the loop would run it (the JAX tracer's ``scan_inline`` and its ``mult``)
+_counting: frozenset = frozenset()
+_keep = 1
+_mults: list = []
+
+
+@contextmanager
+def counting(loops=("micro", "layer", "chunk", "ssd_chunk"), keep: int = 1):
+    """Inside, each loop named in ``loops`` runs its first iteration only
+    (:func:`trips`), and every op traced in that iteration carries
+    ``mult``, the product of the trip counts of the counted loops around it,
+    as ``node.meta["custom"]["mult"]`` (:func:`counted`).  The loops' carried
+    values keep their shapes, so the program traces whole; what it computes
+    is not the program's value, only its op counts are.  ``keep``: run that
+    many iterations instead (an untraced run, whose memory repeats after
+    them)."""
+    global _counting, _keep
+    prev, _counting, _keep = (_counting, _keep), frozenset(loops), keep
+    try:
+        yield
+    finally:
+        _counting, _keep = prev
+
+
+def trips(n: int, loop: str) -> int:
+    """How many iterations of ``loop`` (``n`` of them) to run: at most
+    ``keep`` (1) in count mode, else ``n``."""
+    return min(n, _keep) if loop in _counting else n
+
+
+@contextmanager
+def counted(n: int, loop: str):
+    """Ops traced inside stand for ``n`` iterations of ``loop`` in count
+    mode (nested counted regions multiply); a no-op otherwise.  A region
+    that a checkpoint recomputes in the backward pass must open this
+    inside the recomputed function, so its recomputation is counted too."""
+    if loop not in _counting or n <= 1 or not fx_traceback.has_preserved_node_meta():
+        yield
+        return
+    _mults.append(n)
+    try:
+        with fx_traceback.annotate({"mult": math.prod(_mults)}):
+            yield
+    finally:
+        _mults.pop()
+
+
+def loop(n: int, name: str):
+    """``range(n)`` of a loop named ``name``: in count mode its first
+    iteration, counted ``n`` times."""
+    with counted(n, name):
+        yield from range(trips(n, name))
+
+
+# -- checkpoint recomputation under the verifier's tracer
+_recompute_modes: list = []
+
+
+@contextmanager
+def recompute_under(mode):
+    """Inside, a function that :func:`traced_recompute` wraps runs under
+    ``mode`` (the tracer's ``TorchFunctionMode``) when ``mode`` is off, as
+    it is while the backward pass runs inside its ``torch.autograd.grad``:
+    a checkpoint's recomputation of its forward then traces as the forward
+    did."""
+    _recompute_modes.append(mode)
+    try:
+        yield
+    finally:
+        _recompute_modes.pop()
+
+
+def traced_recompute(fn):
+    """``fn`` for ``torch.utils.checkpoint``: run under the innermost
+    :func:`recompute_under` mode where that mode is not on."""
+    import torch.overrides
+
+    def run(*args, **kwargs):
+        mode = _recompute_modes[-1] if _recompute_modes else None
+        if mode is None or mode in torch.overrides._get_current_function_mode_stack():
+            return fn(*args, **kwargs)
+        with mode:
+            return fn(*args, **kwargs)
+    return run

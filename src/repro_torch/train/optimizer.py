@@ -87,32 +87,37 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
 
     Fault tolerance: a non-finite gradient norm (overflow/NaN from a bad
     batch or a flipped bit) leaves params, ``m`` and ``v`` as they were,
-    and ``step`` still increments: the standard skip-step guard.  (JAX's
+    and ``step`` still increments: the standard skip-step guard.  It is
+    selected on the device, with no host sync: a skipped step's gradient
+    is zeroed (``nan_to_num`` after a zero scale) and its coefficients are
+    those of the identity (``m * 1 + 0``, ``p - 0 * delta``).  (JAX's
     per-element mask of non-finite gradients is an identity whenever the
     norm is finite, so it is not applied.)"""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     gnorm = global_norm(grads)
-    new_state = {"m": state["m"], "v": state["v"], "step": step}
-    info = {"grad_norm": gnorm, "lr": lr}
-    if not bool(torch.isfinite(gnorm)):
-        return params, new_state, info
+    ok = torch.isfinite(gnorm)
     scale = torch.minimum(torch.ones_like(gnorm),
                           cfg.grad_clip / torch.maximum(gnorm, torch.full_like(gnorm, 1e-12)))
+    scale = torch.where(ok, scale, 0.0)
     b1, b2 = cfg.b1, cfg.b2
     corr1 = 1 - b1 ** step.float()
     corr2 = 1 - b2 ** step.float()
+    c1, a1 = torch.where(ok, b1, 1.0), torch.where(ok, 1 - b1, 0.0)
+    c2, a2 = torch.where(ok, b2, 1.0), torch.where(ok, 1 - b2, 0.0)
+    step_lr = torch.where(ok, lr, 0.0)
     leaves = zip(*(tree_flatten(t)[0] for t in (params, grads, state["m"], state["v"])))
     for p, g, m, v in leaves:
         for ps, gs, ms, vs in zip(*map(_slices, (p, g, m, v))):
-            gs = gs.float() * scale
-            ms.mul_(b1).add_((1 - b1) * gs)
-            vs.mul_(b2).add_((1 - b2) * gs * gs)
+            gs = (gs.float() * scale).nan_to_num_()
+            ms.mul_(c1).add_(a1 * gs)
+            vs.mul_(c2).add_(a2 * gs * gs)
             delta = (ms / corr1) / (torch.sqrt(vs / corr2) + cfg.eps)
             p32 = ps.float()
             delta += cfg.weight_decay * p32
-            ps.copy_(p32 - lr * delta)
-    return params, new_state, info
+            ps.copy_(p32 - step_lr * delta)
+    new_state = {"m": state["m"], "v": state["v"], "step": step}
+    return params, new_state, {"grad_norm": gnorm, "lr": lr}
 
 
 # ---------------------------------------------------------------------------

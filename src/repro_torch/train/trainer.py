@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models import Model
+from repro_torch.scope import loop
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 from .compression import allreduce_compressed
@@ -63,7 +64,7 @@ def local_grads(model: Model, tcfg: TrainConfig, params, batch):
         return _value_and_grad(model, tcfg, params, batch)
     micro = _split_micro(batch, tcfg.microbatches)
     loss_sum, gsum = None, None
-    for i in range(tcfg.microbatches):
+    for i in loop(tcfg.microbatches, "micro"):
         loss, g = _value_and_grad(model, tcfg, params, tree_map(lambda x: x[i], micro))
         if gsum is None:
             loss_sum, gsum = loss, g
@@ -80,26 +81,44 @@ def make_step_fn(model: Model, tcfg: TrainConfig, shard_flags=None):
 
     signature: (params, opt_state, batch) -> (params, opt_state, metrics);
     params and the optimizer state are updated in place (and returned)."""
-    ctx = model.ctx
+    grads_fn, update_fn = step_phases(model, tcfg, shard_flags)
 
     def step(params, opt_state, batch):
+        loss, grads = grads_fn(params, batch)
+        return update_fn(params, grads, opt_state, loss)
+
+    return step
+
+
+def step_phases(model: Model, tcfg: TrainConfig, shard_flags=None):
+    """The train step's two phases: ``grads_fn(params, batch) -> (loss,
+    grads)``, the loss averaged and the gradients reduced over the data axes
+    as the update takes them, then ``update_fn(params, grads, opt_state,
+    loss) -> (params, opt_state, metrics)``, AdamW or ZeRO-1 in place.  (A
+    dry run traces the first with autograd and the second functionalized.)"""
+    ctx = model.ctx
+    zero1 = tcfg.zero1 and ctx.dp_axis
+    axes = ctx.dp_axis if isinstance(ctx.dp_axis, tuple) else (ctx.dp_axis,)
+    sizes = ctx.dp_axis_sizes or (ctx.dp_size,)
+
+    def grads_fn(params, batch):
         loss, grads = local_grads(model, tcfg, params, batch)
         if ctx.dp_axis:
             loss = ctx.pmean_dp(loss)
-        if tcfg.zero1 and ctx.dp_axis:
-            axes = ctx.dp_axis if isinstance(ctx.dp_axis, tuple) else (ctx.dp_axis,)
-            sizes = ctx.dp_axis_sizes or (ctx.dp_size,)
-            scatter_axis, others = axes[-1], axes[:-1]
-            for a in others:
+        if zero1:
+            for a in axes[:-1]:
                 grads = tree_map(lambda g: ctx.psum(g, a), grads)
+        elif ctx.dp_axis:
+            grads = allreduce_compressed(grads, tcfg.grad_compress, ctx.dp_axis, ctx)
+            grads = tree_map(lambda g: g / ctx.dp_size, grads)
+        return loss, grads
+
+    def update_fn(params, grads, opt_state, loss):
+        if zero1:
             new_p, new_s, info = zero1_update(tcfg.opt, params, grads, opt_state,
-                                              scatter_axis, sizes[-1], shard_flags, ctx=ctx)
+                                              axes[-1], sizes[-1], shard_flags, ctx=ctx)
         else:
-            if ctx.dp_axis:
-                grads = allreduce_compressed(grads, tcfg.grad_compress, ctx.dp_axis, ctx)
-                grads = tree_map(lambda g: g / ctx.dp_size, grads)
             new_p, new_s, info = adamw_update(tcfg.opt, params, grads, opt_state)
-        del grads
         return new_p, new_s, {"loss": loss, **info}
 
-    return step
+    return grads_fn, update_fn

@@ -30,9 +30,6 @@ schema-versioned JSON; :meth:`CampaignReport.canonical` strips timings and
 cache counters so the same seeds produce byte-identical reports (the CI
 determinism check).
 
-The baseline-free lint tier is not ported, so ``lint_detected`` stays
-False.
-
 CLI verb: ``python -m repro_torch.verify campaign --arch llama3_8b --tp 4``.
 """
 from __future__ import annotations
@@ -148,8 +145,9 @@ class CampaignCell:
     site: str = ""  # injected source site
     localized: bool = False  # site among the top-K ranked BugSites
     category_match: bool = False  # a top site carries the expected category
-    # the baseline-free static tier also flagged this cell: always False
-    # here, the lint tier is not ported yet
+    # the baseline-free static tier (repro_torch.analysis) also flagged this
+    # cell — for injected cells: the bug is catchable without any golden
+    # pair; for clean cells: a lint false positive (gated by tests, not here)
     lint_detected: bool = False
     top_sites: list = field(default_factory=list)  # [{src, category, severity}]
     detail: str = ""
@@ -328,8 +326,12 @@ class CampaignReport:
                     row.append(f"{mark.get(c.outcome, '?') if c else '':>14s}")
                 label = inj or "(clean)"
                 lines.append(f"  {label:<{w}s}" + " ".join(row))
-        if any(c.injector and c.outcome != SKIPPED for c in self.cells):
-            lines.append("  lint tier: not ported")
+        inj_cells = [c for c in self.cells
+                     if c.injector and c.outcome != SKIPPED]
+        if inj_cells:
+            hits = sum(1 for c in inj_cells if c.lint_detected)
+            lines.append(f"  lint tier: {hits}/{len(inj_cells)} injected "
+                         f"cells flagged baseline-free")
         if self.fuzz:
             det = sum(1 for f in self.fuzz if f.injected_outcome == DETECTED)
             n_inj = sum(1 for f in self.fuzz if f.injected_outcome != SKIPPED)
@@ -377,8 +379,9 @@ def _injected_cell(session: Session, arch: str, plan: Plan, scen_kind: str,
 
     t0 = time.perf_counter()
     rep = session.verify(arch, plan, options=options, mutate_dist=mutate,
-                         mutate_pure=True)
+                         mutate_pure=True, lint=True)
     dt = time.perf_counter() - t0
+    lint_hit = bool(rep.lint) and not rep.lint.get("ok", True)
     inj = holder.get("inj")
     if inj is None:
         return CampaignCell(arch, scen_kind, spec.name, SKIPPED,
@@ -388,6 +391,7 @@ def _injected_cell(session: Session, arch: str, plan: Plan, scen_kind: str,
     if rep.verified:
         return CampaignCell(arch, scen_kind, spec.name, MISSED,
                             category=inj.category, site=inj.site,
+                            lint_detected=lint_hit,
                             detail=inj.description, elapsed_s=dt,
                             num_facts=rep.num_facts,
                             trace_cached=rep.cache.trace_cached,
@@ -397,7 +401,8 @@ def _injected_cell(session: Session, arch: str, plan: Plan, scen_kind: str,
         arch, scen_kind, spec.name,
         DETECTED if localized else MISLOCALIZED,
         category=inj.category, site=inj.site, localized=localized,
-        category_match=cat, top_sites=_top_sites(rep),
+        category_match=cat, lint_detected=lint_hit,
+        top_sites=_top_sites(rep),
         detail=inj.description, elapsed_s=dt, num_facts=rep.num_facts,
         trace_cached=rep.cache.trace_cached, fp_cached=rep.cache.fp_cached)
 
@@ -473,10 +478,12 @@ def run_campaign(
                 # clean cell: the scenario itself must verify (and its pair
                 # lands in the session cache every injected cell reuses)
                 t1 = time.perf_counter()
-                rep = session.verify(arch, plan, options=options)
+                rep = session.verify(arch, plan, options=options, lint=True)
                 clean = CampaignCell(
                     arch, cs.kind, "",
                     CLEAN_PASS if rep.verified else FALSE_POSITIVE,
+                    lint_detected=(bool(rep.lint)
+                                   and not rep.lint.get("ok", True)),
                     top_sites=_top_sites(rep),
                     elapsed_s=time.perf_counter() - t1,
                     num_facts=rep.num_facts,

@@ -9,6 +9,8 @@ graphs traced from the torch models).
     python -m repro_torch.verify --list
     python -m repro_torch.verify --list-injectors
     python -m repro_torch.verify campaign --arch llama3_8b --tp 4 [--seeds N]
+    python -m repro_torch.verify lint --arch gemma_2b --tp 4 [--passes ...] [--json -]
+    python -m repro_torch.verify rulecheck [--ops-from ARCH] [--json -]
 
 The ``campaign`` verb runs the detection-benchmark matrix
 (:mod:`repro_torch.verify.campaign`): every registered injector x every
@@ -18,9 +20,11 @@ exit 1 on any missed detection or clean-cell false positive.
 Every scenario of the JAX package is ported: ``tp-forward``, ``tp-decode``
 (``--decode``), ``sp-forward`` (``--sp``), ``dp-forward`` (``--dp``),
 ``dp-grad`` (``--grad``), ``ep-moe-forward`` (``--ep``), ``stage``
-(``--pipeline``) and ``tpdp-forward`` (``--composite``).  The lint tier
-(``--lint``, the ``lint`` and ``rulecheck`` verbs) is not ported yet and
-exits 2.
+(``--pipeline``) and ``tpdp-forward`` (``--composite``).  So is the lint
+tier: ``--lint`` (a baseline-free preflight over each scenario's
+distributed graph, attached as ``Report.lint``), the ``lint`` verb (single
+traced graphs, no golden pair) and the ``rulecheck`` verb (the rule
+registry's producer/consumer matrix).
 
 Exit codes (stable contract for CI and launcher scripts):
 
@@ -123,8 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "first layer collective rather than the embedding "
                          "region (same convention as the bug benchmarks)")
     ap.add_argument("--lint", action="store_true",
-                    help="lint preflight (the JAX package's static tier): "
-                         "not ported yet, exits 2")
+                    help="also run the baseline-free lint tier over each "
+                         "scenario's distributed graph (Report.lint); the "
+                         "verdict is unaffected")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress the human-readable summary")
     return ap
@@ -159,6 +164,7 @@ def ported_archs() -> list[str]:
 
 
 def _print_list() -> None:
+    from repro_torch.analysis import DEFAULT_LINTS
     from repro_torch.core.inject import DEFAULT_INJECTORS
 
     from .scenarios import DEFAULT_SCENARIOS
@@ -168,6 +174,9 @@ def _print_list() -> None:
         print(f"  {line}")
     print("\nregistered injectors:")
     for line in DEFAULT_INJECTORS.describe().splitlines():
+        print(f"  {line}")
+    print("\nregistered lint passes:")
+    for line in DEFAULT_LINTS.describe().splitlines():
         print(f"  {line}")
     print("\nported archs:")
     print("  " + " ".join(ported_archs()))
@@ -297,14 +306,154 @@ def _print_injectors() -> None:
         print(f"  {line}")
 
 
+def build_lint_parser() -> argparse.ArgumentParser:
+    ap = _Parser(
+        prog="python -m repro_torch.verify lint",
+        description="Baseline-free static analysis over single traced "
+                    "graphs: IR well-formedness + sharding-semantics lints "
+                    "(no golden pair required).")
+    ap.add_argument("--arch", action="append", default=None,
+                    help="architecture id (repeatable; 'all' = the full zoo)")
+    ap.add_argument("--tp", type=int, action="append", default=None,
+                    help="tensor-parallel degree (repeatable; default 1)")
+    ap.add_argument("--sp", action="store_true",
+                    help="lint the sequence-parallel forward (tp > 1 only)")
+    ap.add_argument("--layers", type=int, default=2,
+                    help="layer-count override (rounded to block periods)")
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (tp=1 only: smoke head counts "
+                         "break tp divisibility)")
+    ap.add_argument("--passes", default=None,
+                    help="comma-separated lint-pass subset (default: all; "
+                         "unknown names exit 2 listing the registered set)")
+    ap.add_argument("--inject", metavar="INJECTOR[:INDEX]", default=None,
+                    help="inject a bug into the traced graph before linting "
+                         "(testing/demo; same convention as the verify verb)")
+    ap.add_argument("--json", metavar="PATH", default=None,
+                    help="write the machine-readable lint report ('-' = stdout)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="suppress the human-readable summary")
+    return ap
+
+
+def lint_main(argv: Optional[list] = None) -> int:
+    from repro_torch.analysis import (DEFAULT_LINTS, LintError, LintReport,
+                                run_lints, trace_lint_unit, unit_context)
+    from repro_torch.core.inject import InjectorError
+
+    args = build_lint_parser().parse_args(argv)
+    archs = args.arch or []
+    if "all" in archs:
+        archs = [a for a in archs if a != "all"] + list(ARCH_IDS)
+    archs = list(dict.fromkeys(archs))  # dedupe, keep order
+    if not archs:
+        print("error: lint needs at least one --arch ('all' = the zoo)",
+              file=sys.stderr)
+        return EXIT_USAGE
+    known = set(ARCH_IDS) | set(EXTRA_IDS)
+    for a in archs:
+        if a not in known:
+            print(f"error: unknown arch {a!r} "
+                  f"(known: {', '.join(sorted(known))})", file=sys.stderr)
+            return EXIT_USAGE
+    tps = args.tp or [1]
+    passes = ([p for p in args.passes.split(",") if p]
+              if args.passes else None)
+    try:
+        if passes:
+            DEFAULT_LINTS.resolve(passes)  # unknown pass -> exit 2, listed
+        mutate = _injector_of(args.inject) if args.inject else None
+        merged = LintReport()
+        for arch in archs:
+            for tp in tps:
+                unit = trace_lint_unit(arch, tp, sp=args.sp,
+                                       layers=args.layers, batch=args.batch,
+                                       seq=args.seq, smoke=args.smoke)
+                if mutate is not None:
+                    unit = unit.mutate(mutate)
+                merged = merged.merge(
+                    run_lints(unit_context(unit), passes=passes))
+    except (LintError, PlanError, InjectorError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    except ValueError as e:
+        print(f"error: trace invalid for requested plan: {e}",
+              file=sys.stderr)
+        return EXIT_USAGE
+
+    summary_stream = sys.stdout
+    if args.json == "-":
+        print(merged.to_json(indent=2))
+        summary_stream = sys.stderr  # keep stdout pure JSON
+    elif args.json:
+        with open(args.json, "w") as fh:
+            fh.write(merged.to_json(indent=2) + "\n")
+    if not args.quiet:
+        print(merged.summary(), file=summary_stream)
+    return EXIT_VERIFIED if merged.ok else EXIT_UNVERIFIED
+
+
+def build_rulecheck_parser() -> argparse.ArgumentParser:
+    ap = _Parser(
+        prog="python -m repro_torch.verify rulecheck",
+        description="Static checker for the rule registry: dead rules, "
+                    "orphan fact kinds, declaration drift, op coverage.")
+    ap.add_argument("--ops-from", action="append", default=None,
+                    metavar="ARCH",
+                    help="trace this arch and report registry op coverage "
+                         "against its ops (repeatable; 'all' = the zoo; "
+                         "informational, does not gate)")
+    ap.add_argument("--tp", type=int, default=4,
+                    help="tensor-parallel degree for --ops-from traces")
+    ap.add_argument("--json", metavar="PATH", default=None,
+                    help="write the machine-readable report ('-' = stdout)")
+    ap.add_argument("--quiet", action="store_true")
+    return ap
+
+
+def rulecheck_main(argv: Optional[list] = None) -> int:
+    from repro_torch.analysis import check_registry, trace_ops
+
+    args = build_rulecheck_parser().parse_args(argv)
+    archs = args.ops_from or []
+    if "all" in archs:
+        archs = [a for a in archs if a != "all"] + list(ARCH_IDS)
+    archs = list(dict.fromkeys(archs))
+    known = set(ARCH_IDS) | set(EXTRA_IDS)
+    for a in archs:
+        if a not in known:
+            print(f"error: unknown arch {a!r} "
+                  f"(known: {', '.join(sorted(known))})", file=sys.stderr)
+            return EXIT_USAGE
+    try:
+        traced = trace_ops(archs, tp=args.tp) if archs else None
+    except (PlanError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    report = check_registry(traced_ops=traced)
+
+    summary_stream = sys.stdout
+    if args.json == "-":
+        print(report.to_json(indent=2))
+        summary_stream = sys.stderr
+    elif args.json:
+        with open(args.json, "w") as fh:
+            fh.write(report.to_json(indent=2) + "\n")
+    if not args.quiet:
+        print(report.summary(), file=summary_stream)
+    return EXIT_VERIFIED if report.ok else EXIT_UNVERIFIED
+
+
 def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "campaign":
         return campaign_main(argv[1:])
-    if argv and argv[0] in ("lint", "rulecheck"):
-        print(f"error: the {argv[0]!r} verb (the lint tier) is not ported yet",
-              file=sys.stderr)
-        return EXIT_USAGE
+    if argv and argv[0] == "lint":
+        return lint_main(argv[1:])
+    if argv and argv[0] == "rulecheck":
+        return rulecheck_main(argv[1:])
     args = build_parser().parse_args(argv)
     if args.list:
         _print_list()
@@ -323,9 +472,6 @@ def main(argv: Optional[list] = None) -> int:
         return EXIT_USAGE
     from repro_torch.core.inject import InjectorError
 
-    if args.lint:
-        print("error: --lint (the lint tier) is not ported yet", file=sys.stderr)
-        return EXIT_USAGE
     try:
         plan = _plan_of(args)
         mutate = _injector_of(args.inject) if args.inject else None
@@ -344,7 +490,8 @@ def main(argv: Optional[list] = None) -> int:
     try:
         with Session(options=options,
                      cache_dir=_cache_dir_of(args)) as session:
-            report = session.verify(args.arch, plan, mutate_dist=mutate)
+            report = session.verify(args.arch, plan, mutate_dist=mutate,
+                                    lint=args.lint)
     except PlanError as e:
         print(f"error: {e}", file=sys.stderr)
         return EXIT_USAGE

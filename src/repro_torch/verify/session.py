@@ -155,14 +155,15 @@ class Session:
         scenario instead of one per cell.  Template caches stay bypassed
         either way (they describe the unmutated pair).
 
-        ``lint=True`` (the baseline-free static tier of the JAX package)
-        is not ported yet and raises ``NotImplementedError``."""
+        ``lint=True`` runs the baseline-free static tier
+        (:mod:`repro_torch.analysis`) over each scenario's distributed graph —
+        after mutation, so injected bugs are linted — and attaches the
+        result as ``Report.lint`` (a ``LintReport.to_dict()``); the
+        relational verdict is unaffected."""
         if plan is not None and plan_kw:
             raise TypeError(
                 f"pass either a Plan or plan keywords, not both "
                 f"(got plan and {sorted(plan_kw)})")
-        if lint:
-            raise NotImplementedError("the lint tier is not ported yet")
         plan = plan if plan is not None else Plan(**plan_kw)
         options = options or self.options or VerifyOptions()
         cfg_h = _cfg_hash(get_arch_config(arch, smoke=plan.smoke))
@@ -171,14 +172,15 @@ class Session:
         for scen in plan.scenarios():
             results.append(
                 (scen, self._run_scenario(arch, cfg_h, plan, scen, options,
-                                          mutate_dist, mutate_pure)))
+                                          mutate_dist, mutate_pure,
+                                          lint=lint)))
         report = _merge(arch, plan, results)
         report.elapsed_s = time.perf_counter() - t0
         return report
 
     def _run_scenario(self, arch: str, cfg_h: str, plan: Plan, scen: Scenario,
                       options: VerifyOptions, mutate_dist,
-                      mutate_pure: bool = False) -> Report:
+                      mutate_pure: bool = False, lint: bool = False) -> Report:
         key = (arch, cfg_h, scen.name, scen.size, plan.layers, plan.batch,
                plan.seq, plan.max_len, plan.stages, plan.tp, options.stamp)
         cacheable = mutate_dist is None or mutate_pure
@@ -260,6 +262,8 @@ class Session:
             # (or refreshed) by the run above
             if self._store.save(key, pair, self._templates[key]):
                 self._persisted.add(key)
+        if lint:
+            rep.lint = _lint_pair(arch, pair, dist).to_dict()
         return rep
 
     # ------------------------------------------------- function-pair entry
@@ -271,6 +275,28 @@ class Session:
 
         kw.setdefault("options", self.options)
         return _vs(base_fn, dist_fn, *avals, **kw)
+
+
+def _lint_pair(arch: str, pair: GraphPair, dist):
+    """Lint-preflight one scenario's distributed graph (post-mutation)."""
+    from repro_torch.analysis import pair_lint_unit, run_lints, unit_context
+
+    unit = pair_lint_unit(pair, arch=arch)
+    if dist is not pair.dist:
+        unit = unit.mutate(lambda _g: dist)
+    return run_lints(unit_context(unit))
+
+
+def _merge_lint(dicts: list) -> dict:
+    """Fold per-scenario LintReport dicts into one (multi-scenario plans)."""
+    import json as _json
+
+    from repro_torch.analysis import LintReport
+
+    merged = LintReport()
+    for d in dicts:
+        merged = merged.merge(LintReport.from_json(_json.dumps(d)))
+    return merged.to_dict()
 
 
 def _merge(arch: str, plan: Plan, results) -> Report:
@@ -293,6 +319,7 @@ def _merge(arch: str, plan: Plan, results) -> Report:
             "base_trace_cached": rep.cache.base_trace_cached,
             "fp_cached": rep.cache.fp_cached,
             "disk_warm": rep.cache.disk_warm,
+            "lint_ok": rep.lint.get("ok") if rep.lint is not None else None,
             "stamped": rep.stamped,
         }
         for scen, rep in results
@@ -335,6 +362,9 @@ def _merge(arch: str, plan: Plan, results) -> Report:
             ),
         )
         rep.stamped = all(r.stamped for r in reps)
+        lints = [r.lint for r in reps if r.lint is not None]
+        if lints:
+            rep.lint = _merge_lint(lints)
         egraphs = [r.egraph for r in reps if r.egraph is not None]
         if egraphs:
             rep.egraph = {

@@ -20,6 +20,8 @@ COPIES = [
         "registry", "sliceops")),
     "verify/plan.py", "verify/specs.py", "verify/scenarios/registry.py",
     "verify/scenarios/sp.py", "train/straggler.py",
+    *(f"analysis/{m}.py" for m in (
+        "__init__", "report", "registry", "placement", "lints", "rulecheck")),
     *(f"configs/{a}.py" for a in (
         "llama3_8b", "qwen3_4b", "mamba2_130m", "qwen1_5_4b", "chatglm3_6b", "gemma_2b",
         "llama3_70b", "llama3_405b", "hubert_xlarge", "internvl2_26b",
@@ -36,13 +38,13 @@ KNOWN_EXCEPTIONS = {
     "verify/scenarios/harness.py": "shapes are ShapeDtype / fake tensors",
     "verify/scenarios/tp.py": "the rank is a traced input; decode traced functionalized",
     "verify/store.py": "the rules hash keys on the torch version",
-    "verify/session.py": "the lint tier is not ported",
-    "verify/cli.py": "the lint tier exits 2",
+    "verify/session.py": "configs through get_arch_config; reports carry stamped",
+    "verify/cli.py": "lists the ported archs; the port's verbs and help",
     "verify/scenarios/__init__.py": "an arch whose family is not ported is a PlanError",
     "verify/scenarios/dp.py": "dp-grad traced through torch.autograd, its rank program "
                               "spmd.dp_grad; torch pytrees",
     "verify/scenarios/ep.py": "the rank is a traced input; no AbstractMesh",
-    "verify/campaign.py": "the lint tier is off",
+    "verify/campaign.py": "configs through get_arch_config",
     "verify/scenarios/pipeline.py": "the rank is a traced input; the stage program "
                                     "is shared with parallel/pipeline.py",
     "verify/scenarios/composite.py": "the 2-D mesh is traced under the fake process "
@@ -51,6 +53,12 @@ KNOWN_EXCEPTIONS = {
     "parallel/pipeline.py": "a Python loop of ticks and an all_to_all ring in place "
                             "of lax.scan and ppermute",
     "launch/mesh.py": "a DeviceMesh over the running process group",
+    "launch/analysis.py": "the H100 model; counts from the port's count-mode trace, "
+                          "no XLA cost or memory analysis",
+    "launch/dryrun.py": "cells traced under a fake process group over the mesh; "
+                        "memory from MemTracker under FakeTensorMode",
+    "analysis/single.py": "traces through the port's tracer, the rank a traced "
+                          "input under the fake process group",
 }
 
 _IMPORT = re.compile(r"^(\s*)(from|import)\s+repro(_torch)?\.", re.M)

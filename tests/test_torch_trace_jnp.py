@@ -25,7 +25,7 @@ from repro.core.trace import trace as jtrace  # noqa: E402
 from repro.core.trace import trace_sharded as jtrace_sharded  # noqa: E402
 from repro_torch.core.trace import ShapeDtype, fx_program, trace, trace_sharded  # noqa: E402
 from repro_torch.models.attention import write_index  # noqa: E402
-from repro_torch.models.modules import dynamic_slice_in_dim, einsum_f32  # noqa: E402
+from repro_torch.models.modules import dynamic_slice_in_dim, einsum_f32, take  # noqa: E402
 from repro_torch.parallel.sharding import P  # noqa: E402
 
 F32 = (torch.float32, jnp.float32)
@@ -457,6 +457,25 @@ def test_embedding_gradient_is_take_transpose():
     assert [(g[i].op, g[i].shape, g[i].param("broadcast_dimensions")) for i in sa.inputs] \
         == [(jg[i].op, jg[i].shape, _freeze(jg[i].param("broadcast_dimensions")))
             for i in jsa.inputs]
+
+
+def test_take_and_its_gradient_equal_jnp_take():
+    """``modules.take`` and its gradient give ``jnp.take(table, ids,
+    axis=0)``'s values and ``jax.vjp``'s: a negative id counts from the
+    end once, an id out of range gives a row of NaN and adds nothing to
+    the table's gradient; repeated ids add up."""
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((10, 4)).astype(np.float32)
+    ids = np.array([[0, 9, -1], [10, -11, 3], [3, 3, 12]])
+    cot = rng.standard_normal((3, 3, 4)).astype(np.float32)
+    t = torch.from_numpy(table).requires_grad_()
+    out = take(t, torch.from_numpy(ids))
+    grad, = torch.autograd.grad(out, t, torch.from_numpy(cot))
+    jout, vjp = jax.vjp(lambda x: jnp.take(x, jnp.asarray(ids), axis=0), jnp.asarray(table))
+    jgrad, = vjp(jnp.asarray(cot))
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(jout))  # NaN rows too
+    np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), rtol=1e-6, atol=1e-6)
+    assert np.isnan(out.detach().numpy()[1, :2]).all() and not np.isnan(grad.numpy()).any()
 
 
 def test_masked_fill_is_jnp_where():

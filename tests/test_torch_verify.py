@@ -41,13 +41,11 @@ def _plans(scenario: str, size: int, **kw):
 # The port's IR against the JAX package's for the same pair, op by op, over
 # the nodes the outputs depend on (the JAX tracer keeps dead nodes: the dist
 # graph's global-shape inputs, an SSD scan's unused final state).  What stays
-# different (ROADMAP queue 3): the single-device embedding's NaN fill, a
-# select after the gather in the port (base, and dp-forward's dist, the
-# single-device program on a batch shard); jnp.take's index wrap inside
-# vp_embed (TP's dist); and in a forward, one convert a SSM layer for
-# _segsum's -inf, a weakly typed Python scalar in jnp.
-EMBED_DIFF = {"base": {"const": 2, "broadcast": 2, "ge": 1, "lt": 1, "and": 1,
-                       "select": 1, "min": 1, "max": 1},
+# different (ROADMAP queue 3): jnp.take's index wrap inside vp_embed (TP's
+# dist); and in a forward, one convert a SSM layer for _segsum's -inf, a
+# weakly typed Python scalar in jnp.  The single-device lookup (base, and
+# dp-forward's dist) traces as jnp.take does: one filling gather.
+EMBED_DIFF = {"base": {},
               "dist": {"lt": -1, "add": -1, "select": -1, "broadcast": -1}}
 
 
@@ -157,16 +155,20 @@ def test_cli_exit_codes_match_jax(argv, code, jax_code, capsys):
 
 
 def test_cli_unported_and_lint_exit_2(capsys):
+    """Nothing is left unported: ``--grad`` and the lint tier run (``--lint``,
+    the ``lint`` verb, ``Session(lint=True)``); exit 2 stays for a usage
+    error only (``lint`` without an arch)."""
     assert cli.main(["llama3_8b", "--grad", "--dp", "2", "--layers", "2"]) == 0
     assert "VERIFIED llama3_8b [dp2-grad]" in capsys.readouterr().out
-    assert cli.main(["llama3_8b", "--tp", "4", "--lint"]) == 2
-    assert cli.main(["lint", "--arch", "llama3_8b"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err
-    with pytest.raises(NotImplementedError):
-        Session().verify("llama3_8b", Plan(tp=4, layers=LAYERS), lint=True)
+    assert cli.main(["llama3_8b", "--tp", "4", "--layers", "2", "--lint", "--quiet"]) == 0
+    assert cli.main(["lint", "--arch", "llama3_8b", "--quiet"]) == 0
+    assert cli.main(["lint"]) == 2
+    assert "not ported" not in capsys.readouterr().err
+    rep = Session().verify("llama3_8b", Plan(tp=4, layers=LAYERS), lint=True)
+    assert rep.verified and rep.lint["ok"] and rep.scenarios[0]["lint_ok"] is True
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
+    assert "partial-leak" in out and "collective-axis" in out
     assert "tp-forward" in out and "llama3_8b" in out and "dp-grad" in out
     assert "tp-decode" in out and "sp-forward" in out and "chatglm3_6b" in out
     assert "dp-forward" in out and "gemma_2b" in out
@@ -193,13 +195,15 @@ def test_warm_disk_cache_gives_the_same_canonical_report(tmp_path, capsys):
 def test_campaign_cells_match_jax():
     got = run_campaign(["llama3_8b"], tp=4, scenarios=["tp-forward"])
     want = jrun_campaign(["llama3_8b"], tp=4, scenarios=["tp-forward"])
-    cells = {c.injector: (c.outcome, c.localized) for c in got.cells}
-    assert cells == {c.injector: (c.outcome, c.localized) for c in want.cells}
+    cells = {c.injector: (c.outcome, c.localized, c.lint_detected) for c in got.cells}
+    assert cells == {c.injector: (c.outcome, c.localized, c.lint_detected)
+                     for c in want.cells}
     assert got.ok and got.detected == 9 and got.missed == 0
     assert got.false_positives == 0 and got.localization_rate == 1.0
     assert {c.injector for c in got.cells if c.outcome == "skipped"} == {
         "wrong_all_gather_dim", "wrong_scatter_dim"}
-    assert "lint tier: not ported" in got.summary()
+    hits = sum(c.lint_detected for c in got.cells if c.injector and c.outcome != "skipped")
+    assert hits and f"lint tier: {hits}/9 injected cells flagged" in got.summary()
 
 
 @pytest.mark.parametrize("arch,scenarios,detected", [
@@ -210,8 +214,9 @@ def test_campaign_cells_match_jax():
 def test_serving_sp_and_ssm_campaign_cells_match_jax(arch, scenarios, detected):
     got = run_campaign([arch], tp=4, dp=2, scenarios=scenarios)
     want = jrun_campaign([arch], tp=4, dp=2, scenarios=scenarios)
-    cells = {(c.scenario, c.injector): (c.outcome, c.localized) for c in got.cells}
-    assert cells == {(c.scenario, c.injector): (c.outcome, c.localized)
+    cells = {(c.scenario, c.injector): (c.outcome, c.localized, c.lint_detected)
+             for c in got.cells}
+    assert cells == {(c.scenario, c.injector): (c.outcome, c.localized, c.lint_detected)
                      for c in want.cells}
     assert got.ok and got.detected == detected and got.missed == 0
     assert got.false_positives == 0 and got.localization_rate == 1.0
