@@ -528,13 +528,21 @@ FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, and the name of a main
     (2, 8, 1, 330, 200, 64, torch.bfloat16, True),
     (2, 16, 4, 257, 257, 128, torch.bfloat16, False),
     (2, 8, 1, 100, 100, 32, torch.bfloat16, True),
-    # D = 256 (one consumer warpgroup, 64-row q-tiles): Sq, Sk past a tile
-    # with B*H > 1, causal Sq < Sk and Sq > Sk, non-causal, MQA (Hkv = 1),
-    # and the f32 path
+    # D = 256 (two consumer warpgroups on a 128-row q-tile, 80-key KV tiles,
+    # O stored from registers): Sq, Sk past a tile with B*H > 1, causal Sq < Sk
+    # and Sq > Sk, non-causal, MQA (Hkv = 1), and the f32 path; Sq ending
+    # inside the second consumer's rows (100) or just past a q-tile (130),
+    # causal Sq < Sk and Sq > Sk across a 128-row boundary, Sk no multiple
+    # of the KV tile (130, 200)
     (2, 4, 2, 200, 330, 256, torch.bfloat16, True),
     (2, 4, 1, 330, 200, 256, torch.bfloat16, True),
     (2, 8, 2, 257, 257, 256, torch.bfloat16, False),
     (2, 8, 1, 128, 128, 256, torch.bfloat16, True),
+    (2, 4, 1, 100, 100, 256, torch.bfloat16, True),
+    (1, 4, 2, 130, 200, 256, torch.bfloat16, True),
+    (2, 2, 1, 200, 130, 256, torch.bfloat16, True),
+    (1, 4, 4, 100, 200, 256, torch.bfloat16, False),
+    (2, 4, 2, 130, 130, 256, torch.bfloat16, False),
     (1, 4, 1, 100, 160, 256, torch.float32, True),
     (1, 2, 2, 96, 130, 256, torch.float32, False),
     # D = 80 (D=128's tiles, columns 80-127 zero-filled by TMA): hubert_xlarge's
@@ -809,9 +817,33 @@ def _kernel_name(mangled: str) -> str:
     return name + (f"<{m[1]}>" if m else "")
 
 
+def ptxas_report(log: str, smem: dict) -> list:
+    """Each kernel of an ``nvcc -Xptxas -v`` log: its registers, stack and
+    spills, the codes of the notes and warnings ptxas gave it (C7512 or
+    C7520: wgmmas serialised; C7508: setmaxnreg ignored), and from ``smem``
+    (name -> bytes) the dynamic shared memory a block asks for."""
+    funcs, cur, notes = [], None, {}
+    for line in log.splitlines():
+        if m := re.search(r"\((C\d{4})\).*'(\w+)'", line):
+            notes.setdefault(_kernel_name(m[2]), []).append(m[1])
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = {"function": _kernel_name(m[1])}
+            cur["dynamic_smem_bytes"] = smem.get(cur["function"])
+            funcs.append(cur)
+        elif cur is not None:
+            if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line):
+                cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]))
+            if m := re.search(r"Used (\d+) registers", line):
+                cur["registers"] = int(m[1])
+            if m := re.search(r"(\d+) bytes smem", line):
+                cur["static_smem_bytes"] = int(m[1])
+    for f in funcs:
+        f["ptxas_notes"] = notes.get(f["function"], [])
+    return funcs
+
+
 def phase_resources() -> None:
-    """Each kernel's registers, stack and spills from its library's
-    ``nvcc -Xptxas -v`` log, and the dynamic shared memory a block asks for."""
+    """``ptxas_report`` of every kernel library."""
     fa_lib, ssd_lib = build.load("flash_attention"), build.load("ssd_scan")
     fa_smem, ssd_smem = fa_lib.repro_flash_attention_smem_bytes, ssd_lib.repro_ssd_scan_smem_bytes
     fa_smem.restype, ssd_smem.restype = ctypes.c_int, ctypes.c_int
@@ -825,22 +857,8 @@ def phase_resources() -> None:
     for P in (16, 32):
         smem[f"ssd_scan_bf16<{P}>"] = ssd_smem(1, P, 128)
     smem["ssd_chunk_products"] = ssd_smem(2, 0, 128)
-    out = {}
-    for src in build.sources():
-        funcs, cur = [], None
-        for line in build.target(src).with_suffix(".log").read_text().splitlines():
-            if m := re.search(r"Compiling entry function '(\w+)'", line):
-                cur = {"function": _kernel_name(m[1])}
-                cur["dynamic_smem_bytes"] = smem.get(cur["function"])
-                funcs.append(cur)
-            elif cur is not None:
-                if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line):
-                    cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]))
-                if m := re.search(r"Used (\d+) registers", line):
-                    cur["registers"] = int(m[1])
-                if m := re.search(r"(\d+) bytes smem", line):
-                    cur["static_smem_bytes"] = int(m[1])
-        out[src.stem] = funcs
+    out = {src.stem: ptxas_report(build.target(src).with_suffix(".log").read_text(), smem)
+           for src in build.sources()}
     emit("kernel resources", **out)
 
 

@@ -16,6 +16,9 @@
 #   fa_d256_last_q_box    at head dim 256 the last 64-column box of each Q
 #                         tile is never loaded: the producer fills it with
 #                         the third box's columns
+#   fa_d256_second_consumer_rows  at head dim 256 the second consumer
+#                         warpgroup stores its O rows at the first one's
+#                         rows of the q-tile, and its own stay unwritten
 #   fa_d80_box_extent     at head dim 80 the tensor maps' inner extent is
 #                         one box, 64 columns: the second box reads zeros in
 #                         place of columns 64-79 of Q, K and V, and the
@@ -118,7 +121,8 @@ set -u
 root=$(cd "$(dirname "$0")/.." && pwd)
 out=${1:-$root/chiprun_out}
 shift $(( $# > 0 ? 1 : 0 ))
-faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box fa_d80_box_extent \
+faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box \
+fa_d256_second_consumer_rows fa_d80_box_extent \
 ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped \
 tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped \
 sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one \
@@ -147,6 +151,10 @@ for name in $faults; do
       file=$csrc/flash_attention.cu phase=flash_attention
       old='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, b * T::BOX, q0, bh);'
       new='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, (b - (D == 256 && b == T::NBOX - 1)) * T::BOX, q0, bh);' ;;
+    fa_d256_second_consumer_rows)
+      file=$csrc/flash_attention.cu phase=flash_attention
+      old='out + ((size_t)bh * Sq + qpos[h]) * D) + t;'
+      new='out + ((size_t)bh * Sq + qpos[h] - 64 * w) * D) + t;' ;;
     fa_d80_box_extent)
       file=$csrc/flash_attention.cu phase=flash_attention
       old='const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};'

@@ -15,25 +15,37 @@
 // flops per byte of HBM bandwidth, so the bf16 kernel is bound by
 // tensor-core operations (17.4 us at 989 TFLOP/s).  hubert_xlarge's prefill
 // (B=2, H=16, S=1024, D=80, non-causal) does 10.7 GFLOP against 21.0 MB,
-// also bound by operations (10.9 us).  The f32 path runs on the CUDA cores
-// (no tensor cores in full f32) and is bound by their FMA rate.
+// also bound by operations (10.9 us).  gemma_2b's (B=2, H=16, S=1024, D=256,
+// causal) does the same 17.2 GFLOP as the serving shape against 67.1 MB, and
+// is bound by bytes (20.0 us).  The f32 path runs on the CUDA cores (no
+// tensor cores in full f32) and is bound by their FMA rate.
 //
 // What the design does about it (bf16, D in {32, 64, 80, 128, 256}): the
 // FlashAttention-3 shape.
-// - Persistent blocks, one per SM, each with three warpgroups (two for
-//   D=256).  Warpgroup 0 is the producer: one thread issues TMA loads of a
-//   128-row Q tile (64 rows for D=256) and of K and V tiles into a ring of
-//   two stages, with a full and an empty mbarrier per stage and tensor (and
-//   per Q tile), and runs ahead into the block's next q-tile while the
-//   consumers finish the current one.  It gives up registers (setmaxnreg
-//   24) to the two consumer warpgroups (setmaxnreg 240), which own 64 query
-//   rows each.
-// - D=256 (gemma_2b) has one consumer warpgroup: its O accumulator alone is
-//   128 f32 registers a thread, which with S and P fits only the 255 that
-//   ptxas may allocate within a 256-thread launch bound; and two consumers'
-//   Q and O tiles (64 KB each) with two 64-key K/V stages (128 KB) would
-//   pass the 227 KB a block may take.  So a block holds a 64-row Q tile
-//   (32 KB), its O staging tile (32 KB) and the stages (128 KB).
+// - Persistent blocks, one per SM, each with three warpgroups.  Warpgroup 0
+//   is the producer: one thread issues TMA loads of a 128-row Q tile and of
+//   K and V tiles into a ring of two stages, with a full and an empty
+//   mbarrier per stage and tensor (and per Q tile), and runs ahead into the
+//   block's next q-tile while the consumers finish the current one.  It
+//   gives up registers (setmaxnreg 24) to the two consumer warpgroups
+//   (setmaxnreg 240), which own 64 query rows each.
+// - Registers: ptxas -v reports 168 a thread, the launch bound's share for
+//   384 threads, but that is the count at entry: the consumer branch is
+//   compiled within setmaxnreg's 240.  At D=256 a consumer holds O (128 f32
+//   registers a thread), S (40) and P (20) for 80-key tiles, 188 in all,
+//   with no spill.  What spilled there (1,148 bytes with 64-key tiles, and
+//   the wgmmas serialised: ptxas's C7512) was writing O through a staging
+//   tile.  A producer of one warp (288 threads, no setmaxnreg) would not
+//   help: nine warps put three on one SM sub-partition, whose 16,384
+//   registers allow 168 a thread.
+// - D=256 (gemma_2b): a 128-row Q tile (64 KB) and two 80-key K/V stages
+//   (160 KB) leave no room for an O staging tile (64 KB) either, so each
+//   consumer stores its O rows from registers (230,528 B of shared memory).
+//   80-key tiles read 4-6% faster than 64-key ones on the small grids (a
+//   TP-4 rank's 32 q-tiles, a DP-2 rank's 128) and the same on gemma_2b's
+//   prefill, and the two consumers taking turns to issue their products
+//   (FA3's ping-pong, on named barriers) read no faster, so they do not
+//   (scripts/flash_ab.py).
 // - The tensor maps are 3-D over (D, S, B*H), so rows past Sq or Sk come in
 //   as zeros and never from the next head.  Tiles are 128-byte swizzled (64
 //   columns a box; two boxes for D=128, four for D=256), 64-byte for D=32.
@@ -44,7 +56,7 @@
 //   takes the five k16-steps of the 80 true columns and O += P V is one
 //   m64n80k16 a k-step (box 0 and the first 16 columns of box 1), so the
 //   padded columns are never read; with O at 40 registers a thread the
-//   KV tiles are 128 keys (197,760 B of shared memory, as D=256's).  The
+//   KV tiles are 128 keys (197,760 B of shared memory).  The
 //   scale is 1/sqrt(80).
 // - S = Q K^T is a wgmma chain with both operands in shared memory, f32
 //   accumulators in registers.  P (rounded to bf16 in registers) is the
@@ -54,16 +66,16 @@
 //   product, and runs tile j's softmax (one FFMA and one ex2.approx per
 //   score) while the PV product is in flight.  K_j's stage is released as
 //   soon as S_j is done, V_j's after its PV product.
-// - ptxas allocates the consumers' registers within the launch bound (168
-//   for 384 threads); setmaxnreg moves the budget only at run time.  So
-//   D=128 and D=256 take 64-key tiles (S 32, P 16 and O 64 or 128 registers
-//   a thread) and D=32, 64, 80 take 128-key tiles (S 64, P 32, O up to 40);
-//   128-key tiles at D=128 spilled, and ptxas serialised the wgmmas.
+// - D=128 takes 64-key tiles (S 32, P 16 and O 64 registers a thread; with
+//   128-key tiles it spilled, and ptxas serialised the wgmmas) and D=32, 64,
+//   80 take 128-key tiles (S 64, P 32, O up to 40).
 // - Causal: KV tiles wholly above the diagonal are never loaded; only the
 //   diagonal tiles and the ragged Sk edge are masked.  q-tiles are sorted
 //   heaviest first and dealt to the blocks in snake order.
 // - O is normalised in registers, written to a staging tile swizzled as the
-//   O map expects, and stored by TMA, which clips rows past Sq.
+//   O map expects, and stored by TMA, which clips rows past Sq; at D=256
+//   each quad of threads stores 16 contiguous bytes of a row, rows past Sq
+//   skipped.
 // f32: plain FMA in shared memory with four threads per query row.
 //
 // C interface for ctypes: returns cudaGetLastError() after the launch.  The
@@ -186,6 +198,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 80, f32) = A B^T (+ D if scale_d): A 64 x 16 and B 80 x 16, both K-major
+// in shared memory.
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -354,11 +386,9 @@ constexpr int kConsumerRegs = 240;
 
 template <int D>
 struct Tile {
-  // consumer warpgroups per block, 64 query rows each: two for D <= 128;
-  // one for D = 256, whose 128 O accumulators a thread (plus S and P) need
-  // the 255 registers that ptxas allocates only within a 256-thread bound
-  static constexpr int CONSUMERS = D == 256 ? 1 : 2;
-  static constexpr int BQ = 64 * CONSUMERS;         // query rows per block
+  // consumer warpgroups per block, 64 query rows each
+  static constexpr int CONSUMERS = 2;
+  static constexpr int BQ = 64 * CONSUMERS;              // query rows per block
   static constexpr int THREADS = 128 * (1 + CONSUMERS);  // warpgroup 0 loads
   // columns of a tile row in shared memory: D, or D=128's for D=80, whose
   // columns past 80 TMA fills with zeros (and no product reads)
@@ -367,14 +397,19 @@ struct Tile {
   static constexpr int BOX = SW / 2;             // bf16 columns of one box
   static constexpr int NBOX = DT / BOX;
   static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
-  static constexpr int BK = D >= 128 ? 64 : 128;  // keys per KV tile
+  static constexpr int BK = D == 256 ? 80 : D >= 128 ? 64 : 128;  // keys per KV tile
   static constexpr int Q_BOX = BQ * SW;           // one box of the Q tile
   static constexpr int Q_BYTES = BQ * DT * 2;
   static constexpr int KV_BOX = BK * SW;          // one box of a K or V tile
   static constexpr int KV_BYTES = BK * DT * 2;
+  // O goes out through a staging tile and TMA, but at D = 256, where a Q
+  // tile (64 KB), an O tile (64 KB) and two 80-key stages (160 KB) would
+  // pass the 232,448 B a block may take: there each consumer stores its O
+  // rows from registers, and the block holds no O tile
+  static constexpr bool STAGE_O = D != 256;
   // Q and O tiles, the KV stages, 1024 for alignment, 128 for the barriers
-  // (D = 256: 32 + 32 + 128 KB + 1152 B = 197,760 B of the 232,448 a block may take)
-  static constexpr int SMEM = 2 * Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 128;
+  // (D = 256: 64 + 160 KB + 1152 B = 230,528 B)
+  static constexpr int SMEM = (STAGE_O ? 2 : 1) * Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 128;
 };
 
 // Offset of byte `off` of a swizzled box (1024-byte aligned) as TMA lays it out:
@@ -414,6 +449,7 @@ __device__ __forceinline__ void qk_product(float (&s)[Tile<D>::BK / 2], uint64_t
     const int box = kk * 16 / T::BOX, col = (kk * 16 % T::BOX) * 2;
     const uint64_t q = dq + ((box * T::Q_BOX + col) >> 4), k = dk + ((box * T::KV_BOX + col) >> 4);
     if constexpr (T::BK == 64) wgmma_ss_n64(s, q, k, kk > 0);
+    else if constexpr (T::BK == 80) wgmma_ss_n80(s, q, k, kk > 0);
     else wgmma_ss_n128(s, q, k, kk > 0);
   }
 }
@@ -510,7 +546,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;  // Q tile
   const uint32_t so = sq + T::Q_BYTES;                      // O tile, staged for TMA
-  const uint32_t sk0 = so + T::Q_BYTES;                     // K stages
+  const uint32_t sk0 = so + (T::STAGE_O ? T::Q_BYTES : 0);  // K stages
   const uint32_t sv0 = sk0 + kStages * T::KV_BYTES;         // V stages
   const uint32_t bars = sv0 + kStages * T::KV_BYTES;
   // barriers: q_full, q_empty, then per stage k_full, k_empty, v_full, v_empty
@@ -544,8 +580,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   __syncthreads();
 
   if (wg == 0) {  // producer: one thread keeps the Q tile and the KV ring filled
-    if constexpr (kConsumers > 1)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
     if (tid == 0) {
       int it = 0;  // KV tiles loaded so far, over all of this block's q-tiles
       for (int r = 0;; ++r) {
@@ -578,8 +613,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   }
 
   // consumers: warpgroup w owns query rows 64w..64w+63 of each q-tile
-  if constexpr (kConsumers > 1)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
   const int w = wg - 1;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * ((tid / 32) & 3) + g;  // this thread's rows of the 64: r0 and r0 + 8
@@ -669,15 +703,30 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     }
     it += n_kv;
 
-    // Normalise and write O's D columns to this warpgroup's rows of the O
-    // tile, swizzled as the O map expects, once the previous q-tile's store
-    // has read them.
+    // Normalise O.  D = 256: each thread stores its two rows' pairs of
+    // columns straight from registers (a quad writes 16 contiguous bytes of a
+    // row), skipping rows past Sq.  Otherwise: write O's D columns to this
+    // warpgroup's rows of the O tile, swizzled as the O map expects, once the
+    // previous q-tile's store has read them, and store them by TMA.
     float inv[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+    }
+    if constexpr (!T::STAGE_O) {
+      // no O map here: its first word is O's address (see launch_bf16)
+      __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(omap.opaque[0]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (qpos[h] >= Sq) continue;
+        uint32_t* row = reinterpret_cast<uint32_t*>(out + ((size_t)bh * Sq + qpos[h]) * D) + t;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn)
+          row[4 * dn] = pack_bf16(o[4 * dn + 2 * h] * inv[h], o[4 * dn + 2 * h + 1] * inv[h]);
+      }
+      continue;
     }
     if (tid % 128 == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
@@ -702,7 +751,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
-  if (tid % 128 == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (T::STAGE_O && tid % 128 == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ f32, FMA
@@ -885,12 +935,15 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   static cudaError_t configured = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (configured != cudaSuccess) return configured;
-  CUtensorMap qm, km, vm, om;
+  CUtensorMap qm, km, vm, om{};
   if (!make_map(&qm, q, B * Hq, Sq, D, T::BOX, T::BQ, T::SW) ||
       !make_map(&km, k, B * Hkv, Sk, D, T::BOX, T::BK, T::SW) ||
       !make_map(&vm, v, B * Hkv, Sk, D, T::BOX, T::BK, T::SW) ||
-      !make_map(&om, o, B * Hq, Sq, D, T::BOX, 64, T::SW))
+      (T::STAGE_O && !make_map(&om, o, B * Hq, Sq, D, T::BOX, 64, T::SW)))
     return cudaErrorInvalidValue;
+  // Without an O tile there is no O map, and O's address takes its place
+  // (an extra kernel parameter made every other D's kernel 1-2% slower).
+  if constexpr (!T::STAGE_O) om.opaque[0] = reinterpret_cast<cuuint64_t>(o);
   // Persistent: one block per SM (at most one per q-tile) walks the q-tiles.
   static const int sms = [] {
     int dev = 0, n = 0;

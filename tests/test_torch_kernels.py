@@ -92,8 +92,11 @@ def test_flash_plain_vs_pallas_interpret(shape, dtype, causal):
 
 
 # gemma_2b's head dim: MQA (1 KV head) and its padded MHA, ragged and not,
-# both dtypes; causal Sq != Sk against the interpret kernel only (see above)
-D256 = [(1, 4, 1, 96, 96, 256), (1, 2, 2, 64, 160, 256), (2, 2, 1, 160, 64, 256)]
+# both dtypes; causal Sq != Sk against the interpret kernel only (see above).
+# The last two end inside the card kernel's second 128-row q-tile with Sk no
+# multiple of its 64-key tiles, Sq < Sk and Sq > Sk
+D256 = [(1, 4, 1, 96, 96, 256), (1, 2, 2, 64, 160, 256), (2, 2, 1, 160, 64, 256),
+        (1, 2, 1, 130, 200, 256), (1, 2, 2, 200, 130, 256)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -390,3 +393,41 @@ def test_ssd_breakdown_edits_apply():
         for old, new in edits:
             assert src.count(old) == 1, (name, old)
             assert new != old
+
+
+def test_planted_kernel_fault_edits_apply():
+    """scripts/planted_faults.sh plants each kernel fault by replacing text in
+    a csrc/ source; that text must occur there once, the second consumer's
+    row fault of head dim 256 included."""
+    import re
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    script = (root / "scripts" / "planted_faults.sh").read_text()
+    faults = re.findall(r"\n    (\w+)\)\n      file=\$csrc/(\S+) .*?\n      old='(.*?)'\n", script,
+                        re.DOTALL)
+    names = {name for name, _, _ in faults}
+    assert {"fa_d256_last_q_box", "fa_d256_second_consumer_rows", "fa_last_kv_stale",
+            "ssd_carry_dropped"} <= names
+    for name, src, old in faults:
+        text = (root / "src" / "repro_torch" / "kernels" / "csrc" / src).read_text()
+        assert text.count(old) == 1, (name, old)
+
+
+def test_ptxas_report_reads_spills_and_notes():
+    """chip_smoke's kernel resources line: each kernel's registers, spills and
+    the codes of ptxas's notes (C7512: wgmmas serialised), from an nvcc log."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    fn = "_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_728212e114flash_fwd_bf16ILi256EEEvv"
+    log = (f"ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+           f"instructions are serialized in the function '{fn}'\n"
+           f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {fn}\n"
+           "    288 bytes stack frame, 1148 bytes spill stores, 964 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n")
+    (row,) = chip_smoke.ptxas_report(log, {"flash_fwd_bf16<256>": 230528})
+    assert row == {"function": "flash_fwd_bf16<256>", "dynamic_smem_bytes": 230528,
+                   "stack_bytes": 288, "spill_store_bytes": 1148, "registers": 168,
+                   "ptxas_notes": ["C7512"]}
