@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.scope import loop, named_scope
+from repro_torch.scope import loop, named_scope, span
 
 from .modules import apply_rope, einsum_f32, linear, linear_init, rmsnorm, rmsnorm_init
 
@@ -108,28 +108,32 @@ def attn_fwd(cfg, ctx: ParallelCtx, p, x, positions, *, impl: str = "reference",
     (``Model.forward``'s)."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = linear(p["wq"], x)
-    k = linear(p["wk"], x)
-    v = linear(p["wv"], x)
-    Hq_loc = q.shape[-1] // hd
-    Hkv_loc = k.shape[-1] // hd
-    q = _split_heads(q, Hq_loc)
-    k = _split_heads(k, Hkv_loc)
-    v = _split_heads(v, Hkv_loc)
-    if cfg.qk_norm:
-        q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
-        k = rmsnorm(p["knorm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+    with span("attn.qkv"):
+        q = linear(p["wq"], x)
+        k = linear(p["wk"], x)
+        v = linear(p["wv"], x)
+        Hq_loc = q.shape[-1] // hd
+        Hkv_loc = k.shape[-1] // hd
+        q = _split_heads(q, Hq_loc)
+        k = _split_heads(k, Hkv_loc)
+        v = _split_heads(v, Hkv_loc)
+        if cfg.qk_norm:
+            q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
+            k = rmsnorm(p["knorm"], k, cfg.norm_eps)
+    with span("attn.rope"):
+        q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     if kv_out is not None:
         kv_out.append((k, v))
-    if impl == "kernel":
-        out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=cfg.causal)
-    else:
-        out = chunked_attention(q, k, v, causal=cfg.causal, unroll=unroll)
-    out = out.transpose(1, 2).reshape(B, S, Hq_loc * hd)
-    y = linear(p["wo"], out)
+    with span("attn.core"):
+        if impl == "kernel":
+            out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       causal=cfg.causal)
+        else:
+            out = chunked_attention(q, k, v, causal=cfg.causal, unroll=unroll)
+    with span("attn.out"):
+        out = out.transpose(1, 2).reshape(B, S, Hq_loc * hd)
+        y = linear(p["wo"], out)
     return ctx.sp_enter(y)
 
 

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.scope import span
 
 from .modules import ACTS, _init, dynamic_slice_in_dim, linear, linear_init, silu
 
@@ -160,46 +161,52 @@ def moe_fwd(cfg, ctx: ParallelCtx, p, x):
     K = cfg.top_k
     C = moe_capacity(cfg, T)
     xf = x.reshape(T, D)
-    w, idx = _route(cfg, p, xf)
+    with span("moe.router"):
+        w, idx = _route(cfg, p, xf)
 
-    # flatten (token, slot) pairs and compute per-expert positions
-    eid = idx.reshape(T * K)
-    wflat = w.reshape(T * K).to(x.dtype)
-    # the one-hot laid out (E, TK), so each expert's cumsum runs along the
-    # innermost dim: the (TK, E) layout's scan over the outer dim took 3.2
-    # of a 4.0 ms dispatch on an H100 (scripts/moe_dispatch_profile.py)
-    onehot = (torch.arange(E, device=x.device)[:, None] == eid).to(torch.int32)
-    pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot).sum(0) - 1  # (TK,)
-    keep = pos < C
+    with span("moe.positions"):
+        # flatten (token, slot) pairs and compute per-expert positions
+        eid = idx.reshape(T * K)
+        # the one-hot laid out (E, TK), so each expert's cumsum runs along
+        # the innermost dim: the (TK, E) layout's scan over the outer dim
+        # took 3.2 of a 4.0 ms dispatch on an H100 (granite_moe_3b at (2,
+        # 1024), the MoE slice's profile in PERF_HISTORY.md)
+        onehot = (torch.arange(E, device=x.device)[:, None] == eid).to(torch.int32)
+        pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot).sum(0) - 1  # (TK,)
+        keep = pos < C
 
-    # expert parallelism: this rank owns experts [first, first + E_loc)
-    ep = ctx.ep_size if ctx.ep_axis else 1
-    E_loc = E // ep
-    first = ctx.ep_index() * E_loc
-    mine = (eid >= first) & (eid < first + E_loc)
-    local = mine & keep
-    slot = torch.where(local, (eid - first) * C + pos, E_loc * C)  # overflow slot
-    if _ROUTING is not None:
-        _ROUTING.append({"idx": idx, "dropped": (mine & ~keep).sum()})
+        # expert parallelism: this rank owns experts [first, first + E_loc)
+        ep = ctx.ep_size if ctx.ep_axis else 1
+        E_loc = E // ep
+        first = ctx.ep_index() * E_loc
+        mine = (eid >= first) & (eid < first + E_loc)
+        local = mine & keep
+        slot = torch.where(local, (eid - first) * C + pos, E_loc * C)  # overflow slot
+        if _ROUTING is not None:
+            _ROUTING.append({"idx": idx, "dropped": (mine & ~keep).sum()})
 
-    tok = torch.arange(T * K, device=x.device) // K
-    buf = x.new_zeros((E_loc * C + 1, D)).index_copy_(0, slot, xf[tok])
-    ein = buf[: E_loc * C].reshape(E_loc, C, D)
+    with span("moe.gather"):
+        tok = torch.arange(T * K, device=x.device) // K
+        buf = x.new_zeros((E_loc * C + 1, D)).index_copy_(0, slot, xf[tok])
+        ein = buf[: E_loc * C].reshape(E_loc, C, D)
 
-    h = F.silu(torch.bmm(ein, p["wg"])) * torch.bmm(ein, p["wu"])
-    eout = torch.bmm(h, p["wo"])  # (E_loc, C, D)
+    with span("moe.experts"):
+        h = F.silu(torch.bmm(ein, p["wg"])) * torch.bmm(ein, p["wu"])
+        eout = torch.bmm(h, p["wo"])  # (E_loc, C, D)
 
-    flat = torch.cat([eout.reshape(E_loc * C, D), x.new_zeros((1, D))])
-    contrib = (flat[slot] * (wflat * local.to(wflat.dtype))[:, None]).reshape(T, K, D)
-    y = contrib[:, 0]
-    for k in range(1, K):  # partial over the expert axis
-        y = y + contrib[:, k]
-    y = ctx.psum_ep(y).reshape(B, S, D)
-    if "shared" in p:
-        # the shared expert is column/row TP-sharded like a dense MLP: its
-        # output is a partial sum and needs its own reduction (the missing
-        # psum the verifier caught in the reference)
-        y = y + ctx.psum_tp(_shared_fwd(cfg, p["shared"], x))
+    with span("moe.combine"):
+        wflat = w.reshape(T * K).to(x.dtype)
+        flat = torch.cat([eout.reshape(E_loc * C, D), x.new_zeros((1, D))])
+        contrib = (flat[slot] * (wflat * local.to(wflat.dtype))[:, None]).reshape(T, K, D)
+        y = contrib[:, 0]
+        for k in range(1, K):  # partial over the expert axis
+            y = y + contrib[:, k]
+        y = ctx.psum_ep(y).reshape(B, S, D)
+        if "shared" in p:
+            # the shared expert is column/row TP-sharded like a dense MLP:
+            # its output is a partial sum and needs its own reduction (the
+            # missing psum the verifier caught in the reference)
+            y = y + ctx.psum_tp(_shared_fwd(cfg, p["shared"], x))
     if ctx.sp and ctx.tp_axis:
         # under SP the caller expects a sequence-sharded activation; y is
         # replicated here so the local shard is just a slice

@@ -36,7 +36,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.parallel.collectives import vp_embed, vp_embed_sp
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.scope import counted, named_scope, traced_recompute, trips
+from repro_torch.scope import counted, named_scope, span, traced_recompute, trips
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 from .attention import attn_decode, attn_fwd, attn_init, attn_init_cache, write_index
@@ -204,7 +204,8 @@ class Model:
             if cfg.is_moe_layer(j):
                 x = x + MOE_IMPLS[self.moe_impl](cfg, ctx, lparams["moe"], hn)
             else:
-                x = x + mlp_fwd(cfg, ctx, lparams["mlp"], hn)
+                with span("mlp"):
+                    x = x + mlp_fwd(cfg, ctx, lparams["mlp"], hn)
         return x
 
     def _block(self, params, x, positions, i: int, kv_out: Optional[list] = None):
@@ -228,22 +229,27 @@ class Model:
         around the JAX package's scanned block).  ``kv_out``: a list each
         attention layer's K and V, after RoPE, are appended to in layer
         order (a prefill that fills a KV cache).  ``unroll`` is accepted for
-        the JAX signature; layers are always a Python loop."""
+        the JAX signature; layers are always a Python loop.  Inside
+        ``scope.spans()`` the forward, its embedding and head, and each
+        layer's parts open their run-time spans (``scope.SPANS``)."""
         del unroll
         cfg, ctx = self.cfg, self.ctx
-        x = self._inputs_to_hidden(params, batch)
-        S = x.shape[1] * (ctx.tp_size if ctx.sp else 1)
-        positions = torch.arange(S, device=x.device)
-        for i in range(trips(cfg.n_layers // cfg.block_period, "layer")):
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(traced_recompute(self._block), params,
-                                                      x, positions, i, kv_out,
-                                                      use_reentrant=False)
-            else:
-                x = self._block(params, x, positions, i, kv_out)
-        x = ctx.sp_exit(x)
-        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        return self._head(params, x)
+        with span("model.forward"):
+            with span("model.embed"):
+                x = self._inputs_to_hidden(params, batch)
+            S = x.shape[1] * (ctx.tp_size if ctx.sp else 1)
+            positions = torch.arange(S, device=x.device)
+            for i in range(trips(cfg.n_layers // cfg.block_period, "layer")):
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(traced_recompute(self._block),
+                                                          params, x, positions, i, kv_out,
+                                                          use_reentrant=False)
+                else:
+                    x = self._block(params, x, positions, i, kv_out)
+            x = ctx.sp_exit(x)
+            with span("model.head"):
+                x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+                return self._head(params, x)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, *, remat: bool = False):

@@ -8,13 +8,20 @@ verifier's tracer turns ``layer<i>`` paths into layer tags and meta rules
 match regions such as ``vp_embed`` by scope.  Outside a trace (no
 ``preserve_node_meta()``, which the tracer sets) it does nothing, so model
 code keeps it on its run-time path at no cost.
+
+``span(name)`` is the run-time counterpart: inside :func:`spans` it opens a
+``record_function`` range, which a kineto trace (``torch.profiler``) records
+on the host beside the launches and kernels it encloses; elsewhere, and in
+every verifier or dry-run trace, it does nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from contextlib import contextmanager
 
 import torch.fx.traceback as fx_traceback
+from torch.autograd import profiler as _profiler
 
 
 def current_scope() -> str:
@@ -29,6 +36,35 @@ def named_scope(name: str):
     parent = current_scope()
     with fx_traceback.annotate({"scope": f"{parent}/{name}" if parent else name}):
         yield
+
+
+# -- run-time spans: the layers of a forward, for a profiler to record
+SPANS = ("model.forward", "model.embed", "model.head",
+         "attn.qkv", "attn.rope", "attn.core", "attn.out", "mlp",
+         "moe.router", "moe.positions", "moe.gather", "moe.experts", "moe.combine")
+_spans_on = False
+_OFF = contextlib.nullcontext()
+
+
+@contextmanager
+def spans():
+    """Turn the run-time spans on for the block (they are off by default),
+    then back to what they were."""
+    global _spans_on
+    prev, _spans_on = _spans_on, True
+    try:
+        yield
+    finally:
+        _spans_on = prev
+
+
+def span(name: str):
+    """A ``record_function(name)`` range inside :func:`spans`, outside any
+    verifier trace (where it would land in the graph as profiler nodes);
+    a shared no-op context otherwise."""
+    if not _spans_on or fx_traceback.has_preserved_node_meta():
+        return _OFF
+    return _profiler.record_function(name)
 
 
 # -- count mode: the dry run's loops traced once, each op counted as often as
