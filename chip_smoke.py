@@ -136,6 +136,7 @@ from repro_torch.configs.base import SHAPES, ShapeDtype  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import analysis  # noqa: E402
@@ -772,11 +773,24 @@ def init_mamba2(model, gen: torch.Generator) -> dict:
 
 def counts() -> dict:
     return {"flash_attention": fa.flash_attention.launches,
-            "rmsnorm": rn.rmsnorm.launches, "ssd_scan": ssd.ssd_scan.launches}
+            "rmsnorm": rn.rmsnorm.launches, "ssd_scan": ssd.ssd_scan.launches,
+            "moe_gather": md.moe_gather.launches, "moe_combine": md.moe_combine.launches}
 
 
 def reset_counts() -> None:
     fa.flash_attention.launches = rn.rmsnorm.launches = ssd.ssd_scan.launches = 0
+    md.moe_gather.launches = md.moe_combine.launches = 0
+
+
+def want_counts(flash: int = 0, ssd_scans: int = 0, moe: int = 0) -> dict:
+    """``counts()`` as a forward of ``flash`` attention layers, ``ssd_scans``
+    SSD layers and ``moe`` MoE layers on the kernel path launches them."""
+    return {"flash_attention": flash, "rmsnorm": 0, "ssd_scan": ssd_scans,
+            "moe_gather": moe, "moe_combine": moe}
+
+
+def moe_layers(cfg, layers: int) -> int:
+    return sum(cfg.is_moe_layer(i) for i in range(layers))
 
 
 def phase_device() -> None:
@@ -1013,7 +1027,7 @@ def phase_prefill(cfg, model, params, gen, shape, bounds=(LOGIT_REL_RMS, LOGIT_M
     launches = counts()
     MEASURED[f"prefill {cfg.name}"] = dt
     n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
-    want = {"flash_attention": n_attn, "rmsnorm": 0, "ssd_scan": cfg.n_layers - n_attn}
+    want = want_counts(n_attn, cfg.n_layers - n_attn, moe_layers(cfg, cfg.n_layers))
     if launches != want:
         raise AssertionError(f"one prefill launched {launches}, expected {want}")
     with mlp.record_routing() as ref_routing:
@@ -1071,30 +1085,103 @@ def moe_plain(cfg, p, x):
     return y.to(x.dtype).reshape(B, S, D), dropped
 
 
+def dispatch_calls(cfg, ctx, p, x) -> tuple:
+    """``moe_fwd(impl="kernel")`` of one layer, and the arguments its calls
+    of the gather and the combine kernels took, by kernel name."""
+    seen = {}
+    calls = {name: getattr(mlp.ops, name) for name in ("moe_gather", "moe_combine")}
+
+    def recorder(name):
+        def rec(*args):
+            seen[name] = args
+            return calls[name](*args)
+        return rec
+
+    try:
+        for name in calls:
+            setattr(mlp.ops, name, recorder(name))
+        y = mlp.moe_fwd(cfg, ctx, p, x, impl="kernel")
+    finally:
+        for name, fn in calls.items():
+            setattr(mlp.ops, name, fn)
+    return y, seen
+
+
+def equal_plain(seen: dict) -> bool:
+    """Each dispatch kernel, on the arguments in ``seen``, equals its plain
+    version bit for bit."""
+    return all(torch.equal(getattr(md, name)(*args), getattr(md, f"{name}_plain")(*args))
+               for name, args in seen.items())
+
+
+def dispatch_kernel_rows(seen: dict) -> dict:
+    """Each dispatch kernel on the arguments in ``seen`` (held to its plain
+    version), timed beside its bound (bytes: every buffer row written once
+    and each kept pair's row read once by the gather; each kept pair's
+    expert row read once and y written once by the combine) and its plain
+    version."""
+    if not equal_plain(seen):
+        raise AssertionError("a dispatch kernel differs from its plain version")
+    xf, src = seen["moe_gather"]
+    eout, slot, w, local = seen["moe_combine"]
+    row = xf.shape[1] * xf.element_size()
+    kept = int((src >= 0).sum())
+    moved = {"moe_gather": src.shape[0] * row + kept * row + nbytes(src),
+             "moe_combine": kept * row + w.shape[0] * row + nbytes(slot, w, local)}
+    out = {}
+    for name, plain in (("moe_gather", md.moe_gather_plain),
+                        ("moe_combine", md.moe_combine_plain)):
+        args, fn = seen[name], getattr(md, name)
+        r = {"ms": time_ms(fn, args), "call_ms": call_ms(fn, args),
+             "plain_ms": time_ms(plain, args, iters=4)}
+        r["bound_ms"], r["bound_by"] = bound(moved[name])
+        out[name] = r
+    return out
+
+
 def phase_moe_dispatch(cfg, params, gen, shape) -> dict:
     """The capacity dispatch (``mlp.moe_fwd``) of the first MoE layer on the
     card, at the prefill's token count, against ``moe_plain``: N(0, 1)
-    inputs in the model's dtype, the layer's own weights."""
+    inputs in the model's dtype, the layer's own weights.  Its kernel path
+    is held to the reference's bit for bit and each of its two kernels to
+    its plain version; for granite_moe_3b the kernels are then timed on
+    the layer's calls at the benchmark's 16 x 2048 tokens."""
     j = next(j for j in range(cfg.block_period) if cfg.is_moe_layer(j))
     p = {k: v[0] if torch.is_tensor(v) else {"w": v["w"][0]}
          for k, v in params["blocks"][j]["moe"].items() if k != "shared"}
     x = randn(gen, (*shape, cfg.d_model), params["embed"]["w"].dtype)
+    ctx = ParallelCtx.single()
     with mlp.record_routing() as routing:
-        out = mlp.moe_fwd(cfg, ParallelCtx.single(), p, x)
+        out, seen = dispatch_calls(cfg, ctx, p, x)
+    same = torch.equal(out, mlp.moe_fwd(cfg, ctx, p, x))
     ref, dropped = moe_plain(cfg, p, x)
     torch.cuda.synchronize()
     row = {"arch": cfg.name, "tokens": shape[0] * shape[1], "experts": cfg.experts,
            "top_k": cfg.top_k, "capacity": mlp.moe_capacity(cfg, shape[0] * shape[1]),
            "dropped_pairs": int(routing[0]["dropped"]), "plain_dropped_pairs": dropped,
-           "tol": MOE_DISPATCH_TOL,
+           "tol": MOE_DISPATCH_TOL, "kernel_path_equals_reference": same,
+           "kernels_equal_plain": equal_plain(seen),
            "rel_rms_err": ((out.float() - ref.float()).norm() / ref.float().norm()).item()}
     row["max_abs_err"] = close(out, ref, MOE_DISPATCH_TOL)
-    row["call_ms"] = call_ms(lambda a: mlp.moe_fwd(cfg, ParallelCtx.single(), p, a), (x,),
-                             iters=4)
+    for impl in ("kernel", "reference"):
+        row[f"call_ms_{impl}"] = call_ms(
+            lambda a, impl=impl: mlp.moe_fwd(cfg, ctx, p, a, impl=impl), (x,), iters=4)
+    del seen
+    if cfg.name == "granite_moe_3b":  # the benchmark's layer: 40 experts, C = 8,192
+        xb = randn(gen, (16, 2048, cfg.d_model), x.dtype)
+        unpadded = dataclasses.replace(cfg, n_experts_padded=0)
+        p40 = {**p, "router": {"w": p["router"]["w"][:, :cfg.n_experts].contiguous()},
+               **{k: p[k][:cfg.n_experts] for k in ("wg", "wu", "wo")}}
+        row["kernels_at"] = {"tokens": [16, 2048], "experts": cfg.n_experts,
+                             "capacity": mlp.moe_capacity(unpadded, 16 * 2048)}
+        row["kernels"] = dispatch_kernel_rows(dispatch_calls(unpadded, ctx, p40, xb)[1])
+        del xb, p40
     emit("moe dispatch", **row)
     if row["dropped_pairs"] != dropped:
         raise AssertionError(f"the dispatch dropped {row['dropped_pairs']} pairs, the "
                              f"plain loop {dropped}")
+    if not (same and row["kernels_equal_plain"]):
+        raise AssertionError("the dispatch's kernel path differs from the reference's")
     return row
 
 
@@ -1284,7 +1371,7 @@ def phase_dp_forward(gen) -> list:
                           out["logits"].cuda(), ref[r * rows:(r + 1) * rows], DP_LOGIT_BOUNDS)
               for r, out in enumerate(ranks)]
     launches = [r["launches"] for r in ranks]
-    want = {"flash_attention": cfg.n_layers, "rmsnorm": 0, "ssd_scan": 0}
+    want = want_counts(cfg.n_layers)
     emit("dp_forward", arch=cfg.name, dp=DP_SIZE, layers=cfg.n_layers,
          tokens=list(DP_TOKENS), dtype=cfg.dtype, backend="gloo",
          flash_shape_per_rank=[rows, cfg.heads, cfg.kv_heads, DP_TOKENS[1], DP_TOKENS[1],
@@ -1360,7 +1447,7 @@ def phase_tp_forward(gen, arch: str = "llama3_8b", layers: int = TP_LAYERS,
     moe = ({"experts_per_rank": cfg.experts // TP_SIZE,
             "dropped_pairs_per_rank": [r["dropped"] for r in ranks],
             "single_device_dropped_pairs": dropped} if cfg.n_experts else {})
-    want = {"flash_attention": layers, "rmsnorm": 0, "ssd_scan": 0}
+    want = want_counts(layers, moe=moe_layers(cfg, layers))
     emit("tp_forward", arch=cfg.name, tp=TP_SIZE, layers=layers, tokens=list(TP_TOKENS),
          dtype=cfg.dtype, backend="gloo", flash_shape_per_rank=[
              TP_TOKENS[0], cfg.heads // TP_SIZE, cfg.kv_heads // TP_SIZE, TP_TOKENS[1],
@@ -1463,7 +1550,7 @@ def phase_tp_decode(gen) -> list:
     if max(cache_rel.values()) > TP_DECODE_CACHE_REL_RMS:
         raise AssertionError(f"tp_decode cache shards differ from the single device's: "
                              f"{cache_rel}")
-    want = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    want = want_counts()
     if any(n != want for n in launches):
         raise AssertionError(f"a rank's decode launched {launches}, expected {want}")
     return launches
@@ -1549,7 +1636,7 @@ def phase_cp_decode(gen) -> list:
     if sorted((c["data"], c["model"]) for c in checks) != [
             (d, m) for d in range(CP_SIZE) for m in range(CP_TP)]:
         raise AssertionError(f"the ranks' mesh coordinates: {checks}")
-    want = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    want = want_counts()
     if any(n != want for n in launches):
         raise AssertionError(f"a rank's CP decode launched {launches}, expected {want}")
     return launches
@@ -1629,7 +1716,7 @@ def phase_dp_grad_run(gen) -> list:
     if not all(r["finite"] for r in ranks) or max(worst) > DP_GRAD_REL:
         raise AssertionError(f"dp_grad: a rank's psummed gradient is not the full "
                              f"batch's: worst leaf errors {worst}")
-    want = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    want = want_counts()
     if any(n != want for n in launches):
         raise AssertionError(f"a rank's dp_grad launched {launches}, expected {want}")
     return launches
@@ -1668,7 +1755,7 @@ def phase_tpdp_forward(gen) -> list:
         ref[r["data"] * rows:(r["data"] + 1) * rows, :, r["model"] * v:(r["model"] + 1) * v],
         TP_LOGIT_BOUNDS)} for i, r in enumerate(ranks)]
     launches = [r["launches"] for r in ranks]
-    want = {"flash_attention": TP_LAYERS, "rmsnorm": 0, "ssd_scan": 0}
+    want = want_counts(TP_LAYERS)
     emit("tpdp_forward", arch=cfg.name, tp=TPDP_TP, dp=dp, layers=TP_LAYERS,
          tokens=list(TPDP_TOKENS), dtype=cfg.dtype, backend="gloo",
          flash_shape_per_rank=[rows, cfg.heads // TPDP_TP, cfg.kv_heads // TPDP_TP,
@@ -1720,8 +1807,7 @@ def phase_pipeline_forward(gen) -> list:
         for i, r in enumerate(ranks)]
     launches = [r["launches"] for r in ranks]
     ticks = PIPE_MICRO + PIPE_STAGES - 1
-    want = {"flash_attention": PIPE_LAYERS // PIPE_STAGES * ticks, "rmsnorm": 0,
-            "ssd_scan": 0}
+    want = want_counts(PIPE_LAYERS // PIPE_STAGES * ticks)
     emit("pipeline_forward", arch=cfg.name, stages=PIPE_STAGES, tp=tp, layers=PIPE_LAYERS,
          microbatches=PIPE_MICRO, ticks=ticks, tokens=[PIPE_MICRO, PIPE_SEQ],
          dtype=cfg.dtype, backend="gloo", ring=sorted({r["ring"] for r in ranks}),

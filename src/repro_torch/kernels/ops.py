@@ -18,6 +18,7 @@ import torch
 from torch._C import _functorch
 
 from . import flash_attention as _fa
+from . import moe_dispatch as _moe
 from . import rmsnorm as _rn
 from . import ssd_scan as _ssd
 
@@ -27,9 +28,8 @@ def _refuse_autograd(name: str, *tensors) -> None:
         return
     if any(t.requires_grad or _functorch.is_gradtrackingtensor(t) for t in tensors):
         raise RuntimeError(
-            f"the {name} kernel has no backward (neither has the Pallas kernel it "
-            f"ports): it would cut the autograd graph; train with "
-            f"Model(impl='reference'), or call it under torch.no_grad()")
+            f"the {name} kernel has no backward: it would cut the autograd graph; "
+            f"train with Model(impl='reference'), or call it under torch.no_grad()")
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -54,3 +54,19 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def moe_gather(xf, src):
+    """xf: (T, D); src: (rows,) int32, a token or -1 -> (rows, D)."""
+    _refuse_autograd("moe_gather", xf)
+    if xf.device.type == "cpu":
+        return _moe.moe_gather_plain(xf, src)
+    return _moe.moe_gather(xf, src)
+
+
+def moe_combine(eout, slot, w, local):
+    """eout: (rows, D); slot, local: (T*K,) int64, bool; w: (T, K) -> (T, D)."""
+    _refuse_autograd("moe_combine", eout, w)
+    if eout.device.type == "cpu":
+        return _moe.moe_combine_plain(eout, slot, w, local)
+    return _moe.moe_combine(eout, slot, w, local)

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.scope import span
 
@@ -139,22 +140,46 @@ def _route(cfg, p, xf):
     return w, idx
 
 
-def moe_fwd(cfg, ctx: ParallelCtx, p, x):
+def _source_map(slot, top_k: int, rows: int):
+    """(rows + 1,) int32: entry r is the token whose pair took buffer row r,
+    or -1 for an empty row; entry ``rows`` is the overflow, which several
+    dropped or remote pairs write in no fixed order on CUDA and nothing
+    reads."""
+    tok = torch.arange(slot.numel(), dtype=torch.int32, device=slot.device) // top_k
+    return torch.full((rows + 1,), -1, dtype=torch.int32,
+                      device=slot.device).index_copy_(0, slot, tok)
+
+
+def moe_fwd(cfg, ctx: ParallelCtx, p, x, *, impl: str = "reference"):
     """Top-k routed MoE, the capacity dispatch (the execution path).
     x: (B, S, D), replicated across the expert axis.
 
     Each (token, slot) pair takes the next free position of its expert's
     buffer of C = ``moe_capacity`` rows, in token order (cumsum positions);
     a pair past C is dropped.  This rank computes its experts ``[first,
-    first + E_loc)`` (``first = rank * E_loc``) and writes everything else
-    to one overflow row, ``E_loc * C``, which is discarded: several pairs
-    may write it, in no fixed order on CUDA, and nothing reads it.  The
-    combine adds each token's K weighted contributions one after another in
-    x's dtype, as the reference's scatter-add rounds them; in a fixed order,
-    so the result is the same on every run (an ``index_add_`` adds by
-    atomics on CUDA, in an order that changes the bf16 rounding).  The sum
+    first + E_loc)`` (``first = rank * E_loc``) and sends everything else
+    to one overflow slot, ``E_loc * C``, which is discarded: several pairs
+    may write it, in no fixed order on CUDA, and nothing reads it.  The sum
     over ranks is one all_reduce over the expert axis; the shared expert,
-    TP-sharded like a dense MLP, has its own."""
+    TP-sharded like a dense MLP, has its own.
+
+    The combine adds each token's K weighted contributions in slot order,
+    one after another in x's dtype, as the reference's scatter-add rounds
+    them: ``c_k = round(e_k * round(w_k * local_k))``, ``y = c_0``, then ``y =
+    round(y + c_k)``, a dropped or remote pair's +0.0 added in its place.
+    The order is fixed, so the result is the same on every run (an
+    ``index_add_`` adds by atomics on CUDA, in an order that changes the
+    bf16 rounding).
+
+    ``impl="reference"`` (the verifier, training, decode) moves the rows
+    with PyTorch expressions: a zero-filled buffer ``index_copy_``'d from
+    ``xf[tok]``, then ``cat`` of the experts' output and the overflow row,
+    ``flat[slot]`` times the weights and the K - 1 adds.  ``impl="kernel"``
+    (prefill) builds a source map (``_source_map``) and moves the rows with
+    the hand-written kernels ``ops.moe_gather`` and ``ops.moe_combine``, with
+    no (pair, D) tensor.  There the fixed add order lives in the combine
+    kernel (``kernels/csrc/moe_dispatch.cu``; on the CPU its plain version,
+    ``kernels/moe_dispatch.py``), bit for bit the reference's."""
     B, S, D = x.shape
     T = B * S
     E = cfg.experts
@@ -186,21 +211,28 @@ def moe_fwd(cfg, ctx: ParallelCtx, p, x):
             _ROUTING.append({"idx": idx, "dropped": (mine & ~keep).sum()})
 
     with span("moe.gather"):
-        tok = torch.arange(T * K, device=x.device) // K
-        buf = x.new_zeros((E_loc * C + 1, D)).index_copy_(0, slot, xf[tok])
-        ein = buf[: E_loc * C].reshape(E_loc, C, D)
+        if impl == "kernel":
+            src = _source_map(slot, K, E_loc * C)
+            ein = ops.moe_gather(xf, src[: E_loc * C]).reshape(E_loc, C, D)
+        else:
+            tok = torch.arange(T * K, device=x.device) // K
+            buf = x.new_zeros((E_loc * C + 1, D)).index_copy_(0, slot, xf[tok])
+            ein = buf[: E_loc * C].reshape(E_loc, C, D)
 
     with span("moe.experts"):
         h = F.silu(torch.bmm(ein, p["wg"])) * torch.bmm(ein, p["wu"])
         eout = torch.bmm(h, p["wo"])  # (E_loc, C, D)
 
     with span("moe.combine"):
-        wflat = w.reshape(T * K).to(x.dtype)
-        flat = torch.cat([eout.reshape(E_loc * C, D), x.new_zeros((1, D))])
-        contrib = (flat[slot] * (wflat * local.to(wflat.dtype))[:, None]).reshape(T, K, D)
-        y = contrib[:, 0]
-        for k in range(1, K):  # partial over the expert axis
-            y = y + contrib[:, k]
+        if impl == "kernel":  # partial over the expert axis
+            y = ops.moe_combine(eout.reshape(E_loc * C, D), slot, w.to(x.dtype), local)
+        else:
+            wflat = w.reshape(T * K).to(x.dtype)
+            flat = torch.cat([eout.reshape(E_loc * C, D), x.new_zeros((1, D))])
+            contrib = (flat[slot] * (wflat * local.to(wflat.dtype))[:, None]).reshape(T, K, D)
+            y = contrib[:, 0]
+            for k in range(1, K):  # partial over the expert axis
+                y = y + contrib[:, k]
         y = ctx.psum_ep(y).reshape(B, S, D)
         if "shared" in p:
             # the shared expert is column/row TP-sharded like a dense MLP:

@@ -19,7 +19,9 @@ differentiated on ``impl="reference"``.
 MoE layers run ``MOE_IMPLS[moe_impl]``: the capacity dispatch
 (``"capacity"``, the default, what prefill, decode and TP execution run) or
 one of the verifier's static formulations (``"dense"`` for TP, ``"ep"`` for
-expert parallelism), as in the JAX package.
+expert parallelism), as in the JAX package.  The capacity dispatch of
+prefill/forward takes ``impl`` too: ``"kernel"`` moves its rows with the
+dispatch's gather and combine kernels; decode keeps the reference's.
 
 The frontends are stubs, as in the JAX package: the model's inputs are
 precomputed frame embeddings (``frames``, the whole sequence) or patch
@@ -201,7 +203,9 @@ class Model:
         if "ln2" in lparams:
             h = ctx.sp_exit(x)
             hn = rmsnorm(lparams["ln2"], h, cfg.norm_eps)
-            if cfg.is_moe_layer(j):
+            if cfg.is_moe_layer(j) and self.moe_impl == "capacity":
+                x = x + moe_fwd(cfg, ctx, lparams["moe"], hn, impl=self.impl)
+            elif cfg.is_moe_layer(j):
                 x = x + MOE_IMPLS[self.moe_impl](cfg, ctx, lparams["moe"], hn)
             else:
                 with span("mlp"):

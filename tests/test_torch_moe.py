@@ -211,6 +211,31 @@ def test_overflow_row_is_never_read(monkeypatch):
     assert torch.equal(got, want)
 
 
+def test_overflow_source_entry_is_never_read(monkeypatch):
+    """The kernel path's source map: dropped pairs all write its last entry,
+    in no fixed order on CUDA; pointing that entry at a real token after the
+    writes changes nothing."""
+    _, tcfg = _configs("granite_moe_3b", "bfloat16", capacity_factor=0.3)
+    jcfg, _ = _configs("granite_moe_3b", "bfloat16")
+    _, tp = _layer(jcfg, "bfloat16")
+    _, tx = _x(tcfg, "bfloat16", S=16)
+    ctx = ParallelCtx.single()
+    want = mlp.moe_fwd(tcfg, ctx, tp, tx, impl="kernel")
+    source_map = mlp._source_map
+
+    def poisoned(slot, top_k, rows):
+        out = source_map(slot, top_k, rows)
+        out[-1] = 0
+        return out
+
+    monkeypatch.setattr(mlp, "_source_map", poisoned)
+    with mlp.record_routing() as routing:
+        got = mlp.moe_fwd(tcfg, ctx, tp, tx, impl="kernel")
+    assert int(routing[0]["dropped"]) > 0
+    assert torch.equal(got, want)
+    assert torch.equal(got, mlp.moe_fwd(tcfg, ctx, tp, tx))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_capacity_drops_pairs_as_jax(dtype):
     """The serving step routes B tokens at a time: granite's two slots get
