@@ -137,6 +137,7 @@ from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import analysis  # noqa: E402
@@ -505,8 +506,9 @@ MOE_DISPATCH_TOL = (5e-2, 2e-2)
 # MOE_BOUNDS["tp"].
 MOE_TP_LAYERS = 4
 
-FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, and the name of a main
-    # path's shape, which is timed (None: checked only)
+FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, the name of a main
+    # path's shape, which is timed (None: checked only), and that path's
+    # softmax scale (None: the default, 1 / sqrt(D))
     # qwen3_4b's prefill shape, and chatglm3_6b's (32 q-heads, 2 KV heads padded to 16)
     (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True, "qwen3_4b"),
     (1, 8, 4, 1024, 1024, 128, torch.bfloat16, True, "tp_forward"),  # llama3_8b TP-4, a rank
@@ -569,8 +571,11 @@ FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, and the name of a main
     (1, 16, 8, 1024, 1024, 128, torch.bfloat16, True, "tpdp_forward"),
     # moonshot_v1_16b's prefill (MHA, 16 heads)
     (2, 16, 16, 1024, 1024, 128, torch.bfloat16, True, "moonshot_v1_16b"),
+    # granite-4.0-h-small's prefill of 8 x 4096 (32 q-heads over 8 KV heads,
+    # G = 4) at its own softmax scale, 1/128, and at the default as well
+    (8, 32, 8, 4096, 4096, 128, torch.bfloat16, True, "granite_4_0_h_small", 1 / 128),
 ]
-FA_CASES = [c if len(c) == 9 else (*c, None) for c in FA_CASES]
+FA_CASES = [(*c, *(None,) * (10 - len(c))) for c in FA_CASES]
 RN_CASES = [  # rows, D, dtype; the first two are timed
     (2048, 2560, torch.bfloat16),  # d_model rows of a (2, 1024) prefill
     (2 * 32 * 1024, 128, torch.bfloat16),  # its q-norm rows
@@ -581,8 +586,11 @@ RN_CASES = [  # rows, D, dtype; the first two are timed
 # dt_bias) with dt_bias and A as Mamba-2 initializes them; "slow" draws dt
 # uniform in [1e-3, 1e-2] and A = -exp(N(0, 1)), so that a chunk of 128 keeps
 # about half its state (median exp(-0.7)) and the carry between chunks shows.
+# A ninth entry names a main path's shape, which is timed.
 SSD_CASES = [
-    (4, 4096, 32, 64, 128, 128, torch.bfloat16, "mamba2"),  # mamba2_130m prefill
+    (4, 4096, 32, 64, 128, 128, torch.bfloat16, "mamba2", "mamba2_130m"),  # its prefill
+    # granite-4.0-h-small's benchmark cell: 8 x 4096, 128 heads
+    (8, 4096, 128, 64, 128, 128, torch.bfloat16, "mamba2", "granite_4_0_h_small"),
     (1, 5, 2, 16, 8, 128, torch.float32, "mamba2"),  # S < chunk: q = 5
     (2, 3, 4, 32, 16, 128, torch.float32, "mamba2"),  # q = 3
     (1, 100, 2, 64, 128, 128, torch.float32, "mamba2"),  # q = 100, past one half-chunk
@@ -599,6 +607,7 @@ SSD_CASES = [
     (2, 256, 4, 16, 64, 64, torch.bfloat16, "mamba2"),
     (1, 256, 4, 128, 64, 64, torch.float32, "slow"),
 ]
+SSD_CASES = [c if len(c) == 9 else (*c, None) for c in SSD_CASES]
 
 
 def emit(phase: str, **fields) -> None:
@@ -877,11 +886,12 @@ def phase_resources() -> None:
 
 
 def phase_flash(gen) -> dict:
-    """Every FA_CASES row against the plain version; the rows of a main
-    path's shape are timed against the plain version and SDPA, and returned
-    by name."""
+    """Every FA_CASES row against the plain version, at the default softmax
+    scale and, where the row gives one, through ``ops.flash_attention`` at
+    that scale too; the rows of a main path's shape are timed at the path's
+    scale against the plain version and SDPA, and returned by name."""
     rows = {}
-    for B, Hq, Hkv, Sq, Sk, D, dt, causal, name in FA_CASES:
+    for B, Hq, Hkv, Sq, Sk, D, dt, causal, name, scale in FA_CASES:
         q = randn(gen, (B, Hq, Sq, D), dt)
         k = randn(gen, (B, Hkv, Sk, D), dt)
         v = randn(gen, (B, Hkv, Sk, D), dt)
@@ -891,16 +901,25 @@ def phase_flash(gen) -> dict:
         err = close(out, ref, FA_TOL[dt])
         case = {"shape": [B, Hq, Hkv, Sq, Sk, D], "dtype": str(dt), "causal": causal,
                 "max_abs_err": err, "tol": FA_TOL[dt]}
+        if scale is not None:
+            del out, ref
+            out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+            ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+            torch.cuda.synchronize()
+            err = close(out, ref, FA_TOL[dt])
+            case.update(scale=scale, scaled_max_abs_err=err)
         if name:  # a main path's shape: time it
             pairs = sum(min(r + 1, Sk) for r in range(Sq)) if causal else Sq * Sk
             args = (q, k, v)
             row = {"shape": case["shape"], "max_abs_err": err}
-            row["ms"] = time_ms(lambda *a: fa.flash_attention(*a, causal=causal), args)
-            row["call_ms"] = call_ms(lambda *a: fa.flash_attention(*a, causal=causal), args)
-            row["plain_ms"] = time_ms(
-                lambda *a: fa.flash_attention_plain(*a, causal=causal), args, iters=4)
+            row["ms"] = time_ms(lambda *a: fa.flash_attention(*a, causal=causal, scale=scale),
+                                args)
+            row["call_ms"] = call_ms(
+                lambda *a: fa.flash_attention(*a, causal=causal, scale=scale), args)
+            row["plain_ms"] = time_ms(lambda *a: fa.flash_attention_plain(
+                *a, causal=causal, scale=scale), args, iters=4)
             row["library_ms"] = time_ms(lambda *a: F.scaled_dot_product_attention(
-                *a, is_causal=causal, enable_gqa=True), args)
+                *a, is_causal=causal, enable_gqa=True, scale=scale), args)
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes(q, k, v, out), (4.0 * D * B * Hq * pairs, dt))
             case.update(row, path=name)
@@ -961,9 +980,10 @@ def ssd_restarted(x, dt, A, Bm, Cm, *, chunk: int):
 
 def phase_ssd(gen) -> dict:
     """Every case is compared before a failure raises, so that one run shows
-    which cases a faulty kernel fails."""
-    row, failed = None, []
-    for B, S, H, P, N, chunk, dt, kind in SSD_CASES:
+    which cases a faulty kernel fails; the rows of a main path's shape are
+    timed and returned by name."""
+    rows, failed = {}, []
+    for B, S, H, P, N, chunk, dt, kind, name in SSD_CASES:
         args = ssd_inputs(gen, B, S, H, P, N, dt, kind)
         out = ssd.ssd_scan(*args, chunk=chunk)
         ref = ssd.ssd_scan_plain(*args, chunk=chunk)
@@ -979,7 +999,7 @@ def phase_ssd(gen) -> dict:
             case["error"] = str(err)
             failed.append(case)
         del out, ref, restarted
-        if row is None:  # the main path's shape: time it
+        if name:  # a main path's shape: time it
             q = ssd.chunk_len(S, chunk)
             # The work the scan needs: C B^T on the causal pairs once per
             # (b, chunk), since all heads share one B and C, in the type of
@@ -1002,12 +1022,13 @@ def phase_ssd(gen) -> dict:
                    "library_ms": None}  # no single PyTorch call computes the scan
             row["bound_ms"], row["bound_by"] = bound(
                 moved, (cbt, args[3].dtype), per_head_work)
-            case.update(row)
+            case.update(row, path=name)
+            rows[name] = row
         emit("kernel ssd_scan", ok="error" not in case, **case)
     if failed:
         raise AssertionError(f"ssd_scan disagrees with its plain version in "
                              f"{len(failed)} case(s): {failed}")
-    return row
+    return rows
 
 
 def phase_prefill(cfg, model, params, gen, shape, bounds=(LOGIT_REL_RMS, LOGIT_MAX_ABS)
@@ -2468,7 +2489,7 @@ def main() -> int:
             phase_resources()
             fa_rows = phase_flash(gen)
             rn_row = phase_rmsnorm(gen)
-            ssd_row = phase_ssd(gen_ssm)
+            ssd_rows = phase_ssd(gen_ssm)
         finish_host_phases()
     # training runs with grad enabled, outside inference_mode
     train_launches = phase_train()
@@ -2601,14 +2622,16 @@ def main() -> int:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:65",
-         "launches": ssm_launches["ssd_scan"], **ssd_row},
+         "launches": ssm_launches["ssd_scan"], **ssd_rows["mamba2_130m"],
+         **{f"{name}_shape": row for name, row in ssd_rows.items() if name != "mamba2_130m"}},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in kernels:  # every main path's count, read around that path
         row["launches_by_path"] = {path: [c[row["name"]] for c in n] if isinstance(n, list)
                                    else n[row["name"]] for path, n in paths.items()}
-    extra = ("launches_by_path", *(f"{name}_shape" for name in fa_rows if name != "qwen3_4b"))
+    extra = ("launches_by_path", *(f"{name}_shape" for name in fa_rows if name != "qwen3_4b"),
+             *(f"{name}_shape" for name in ssd_rows if name != "mamba2_130m"))
     emit("run", seconds=time.perf_counter() - t_run, card=card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in kernels]}))

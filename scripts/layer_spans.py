@@ -21,10 +21,11 @@ seconds, self device seconds (the kernels whose launch call lies in it and
 in none of its children, matched by correlation id) and the idle seconds of
 the gaps that began while it was the innermost span; and to three readings:
 ``moe_dispatch_ms`` (self device ms of ``moe.positions``, ``moe.gather`` and
-``moe.combine`` per forward), ``forward_idle_pct`` (idle seconds of the gaps
+``moe.combine`` per forward), ``ssm_mixer_ms`` (self device ms of the
+``ssm.*`` spans per forward, the Mamba-2 mixers), ``forward_idle_pct`` (idle seconds of the gaps
 that began inside ``model.forward``, over the segment's window) and
 ``launches_per_forward``.  A program without ``scope.spans`` (``--src`` of an
-older tree) runs segment 4 without spans, and the three read null.
+older tree) runs segment 4 without spans, and the readings are null.
 
     python3 scripts/layer_spans.py --workload granite_moe_3b.prefill_batch16 \\
         --seed 2147500001 --seconds 20 [--src OTHER/src] [--out FILE.json]
@@ -45,6 +46,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 FORWARD = "model.forward"
 DISPATCH = ("moe.positions", "moe.gather", "moe.combine")
+SSM = ("ssm.proj", "ssm.conv", "ssm.scan", "ssm.norm", "ssm.out")
 # the benchmark's own definitions of a launch call and of busy time
 _spec = importlib.util.spec_from_file_location("port_bench_tracing",
                                                ROOT / "port_bench" / "tracing.py")
@@ -183,8 +185,10 @@ def reduce_spans(events: list, unit: str = "request", program: tuple = ()) -> di
     window_s = (t1 - t0) * 1e-9
     forwards = table.get(FORWARD, {}).get("calls", 0)
     dispatch = [table[n]["self_device_s"] for n in DISPATCH if n in table]
+    ssm = [table[n]["self_device_s"] for n in SSM if n in table]
     readings = {
         "moe_dispatch_ms": 1e3 * sum(dispatch) / forwards if forwards and dispatch else None,
+        "ssm_mixer_ms": 1e3 * sum(ssm) / forwards if forwards and ssm else None,
         "forward_idle_pct": 100.0 * in_forward["idle_s"] / window_s if forwards else None,
         "launches_per_forward": in_forward["launches"] / forwards if forwards else None,
     }
@@ -208,7 +212,7 @@ def run(workload: str, seed: int, seconds: float) -> dict:
     from repro_torch.kernels import ops as kops
 
     cell = spec.load_cell(workload)
-    if cell.traffic["kind"] != "prefill":
+    if cell.traffic["kind"] not in ("prefill", "prefill_hybrid"):
         raise SystemExit(f"{workload}: not a prefill cell")
     traffic, vocab = cell.traffic, cell.config["port"]["vocab"]
     kbuild.build_all()

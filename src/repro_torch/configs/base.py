@@ -3,7 +3,12 @@
 Every ported architecture gets one module in this package defining a
 ``CONFIG`` (full published size) and a ``SMOKE`` (reduced same-family config
 for CPU tests).  The fields and derived properties are those of the JAX
-package's ``ArchConfig``, so one config describes the same model in both.
+package's ``ArchConfig``, so one config describes the same model in both;
+the port adds a few whose defaults leave the arithmetic as it was
+(``attention_multiplier``, ``ssm_conv_bias``, ``ssm_norm_group`` and the
+multipliers of the embedding, the residual branches and the logits), which
+only the port's own configs set (``granite_4_0_h_small``, off the JAX
+package's lists).
 
 Shape suite: train_4k / prefill_32k / decode_32k / long_500k, with per-arch
 skips (encoder-only -> no decode; full-attention -> no 500k), as in the JAX
@@ -36,6 +41,7 @@ class ArchConfig:
     rope_fraction: float = 1.0  # chatglm3 applies RoPE to half the head dim
     rope_theta: float = 10_000.0
     causal: bool = True
+    attention_multiplier: float = 0.0  # softmax scale; 0 -> hd ** -0.5 (granite's 1/128)
     # mlp flavour
     mlp_act: str = "swiglu"  # swiglu | geglu | gelu
     # MoE
@@ -55,6 +61,8 @@ class ArchConfig:
     ssm_head_dim: int = 64
     ssm_conv: int = 4
     ssm_chunk: int = 128
+    ssm_conv_bias: bool = False  # a bias on each causal conv (granite-4.0-h)
+    ssm_norm_group: int = 0  # gated norm's group of channels; 0 -> one SSD head
     # structure
     encoder_only: bool = False
     tie_embeddings: bool = False
@@ -63,6 +71,11 @@ class ArchConfig:
     frontend_len: int = 0  # number of prefix embeddings
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    # granite's multipliers: the embedding, each mixer or MLP/MoE branch before
+    # its residual add, and the head's logits (divided); 1.0 leaves each out
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     # padding applied for TP/EP divisibility
     n_heads_padded: int = 0
     n_kv_heads_padded: int = 0
@@ -142,6 +155,8 @@ class ArchConfig:
                 di = self.d_inner
                 n += self.d_model * (2 * di + 2 * self.ssm_state + self.ssm_heads)
                 n += di * self.d_model + self.ssm_conv * (di + 2 * self.ssm_state)
+                if self.ssm_conv_bias:
+                    n += di + 2 * self.ssm_state
             if self.is_moe_layer(li):
                 n += self.d_model * self.n_experts  # router
                 n += self.n_experts * 3 * self.d_model * self.d_ff_expert
@@ -162,6 +177,12 @@ class ArchConfig:
         all_exp = moe_layers * self.n_experts * 3 * self.d_model * self.d_ff_expert
         act_exp = moe_layers * self.top_k * 3 * self.d_model * self.d_ff_expert
         return full - all_exp + act_exp
+
+
+# the fields the port added beside the JAX package's; at their defaults
+# (every config the JAX package has) they leave the arithmetic as it was
+PORT_FIELDS = ("attention_multiplier", "ssm_conv_bias", "ssm_norm_group",
+               "embedding_multiplier", "residual_multiplier", "logits_scaling")
 
 
 @dataclass(frozen=True)

@@ -984,12 +984,13 @@ extern "C" int repro_flash_attention_smem_bytes(int dtype, int D) {
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
-extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                         void* o, int dtype, int B, int Hq, int Hkv,
-                                         int Sq, int Sk, int D, int causal,
-                                         void* stream) {
-  const float scale_log2 = (float)(1.0 / sqrt((double)D) * (double)kLog2e);
+// dtype: 0 = float32, 1 = bfloat16; scale: the softmax scale of the scores
+// (1 / sqrt(D) for the usual attention).  Returns a cudaError_t.
+extern "C" int repro_flash_attention_fwd_scaled(const void* q, const void* k, const void* v,
+                                                void* o, int dtype, int B, int Hq, int Hkv,
+                                                int Sq, int Sk, int D, int causal,
+                                                double scale, void* stream) {
+  const float scale_log2 = (float)(scale * (double)kLog2e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
@@ -1009,4 +1010,13 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// The entry at the scale 1 / sqrt(D).
+extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                         void* o, int dtype, int B, int Hq, int Hkv,
+                                         int Sq, int Sk, int D, int causal,
+                                         void* stream) {
+  return repro_flash_attention_fwd_scaled(q, k, v, o, dtype, B, Hq, Hkv, Sq, Sk, D, causal,
+                                          1.0 / sqrt((double)D), stream);
 }

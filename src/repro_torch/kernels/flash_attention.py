@@ -8,8 +8,9 @@ GQA/MQA/MHA, online softmax in f32, causal mask aligned top-left
 Head dims ``HEAD_DIMS``; D=80 runs on D=128's tiles, the columns past 80
 filled with zeros by the kernel's loads (q, k and v are not padded here).
 
-``flash_attention_plain`` computes the same function in plain PyTorch: one
-softmax block over all keys, the same top-left mask, ``p`` rounded to v's
+Both take the softmax scale of the scores as ``scale`` (``None``: 1 /
+sqrt(D)).  ``flash_attention_plain`` computes the same function in plain
+PyTorch: one softmax block over all keys, the same top-left mask, ``p`` rounded to v's
 dtype before the PV product and divided by the f32 denominator afterwards.
 """
 from __future__ import annotations
@@ -25,13 +26,18 @@ HEAD_DIMS = (32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
+def softmax_scale(D: int, scale: float | None) -> float:
+    """``scale``, or 1 / sqrt(D) where it is None."""
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's dtype."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Hkv, G, Sq, D).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * softmax_scale(D, scale)
     if causal:
         pos_q = torch.arange(Sq, device=q.device)
         pos_k = torch.arange(Sk, device=q.device)
@@ -78,14 +84,15 @@ _FN = None
 def _entry():
     global _FN
     if _FN is None:
-        fn = build.load("flash_attention").repro_flash_attention_fwd
+        fn = build.load("flash_attention").repro_flash_attention_fwd_scaled
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_double, ctypes.c_void_p])
         _FN = fn
     return _FN
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     """Launch the CUDA kernel on q's device and current stream."""
     _check(q, k, v)
     fn = _entry()
@@ -95,7 +102,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal), stream)
+                _DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
+                softmax_scale(D, scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1

@@ -32,12 +32,13 @@ def _refuse_autograd(name: str, *tensors) -> None:
             f"train with Model(impl='reference'), or call it under torch.no_grad()")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D)."""
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D); ``scale``
+    multiplies the scores (None: 1 / sqrt(D))."""
     _refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
-        return _fa.flash_attention_plain(q, k, v, causal=causal)
-    return _fa.flash_attention(q, k, v, causal=causal)
+        return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):

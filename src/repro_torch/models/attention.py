@@ -47,11 +47,13 @@ def _split_heads(x, n_heads: int):
 def chunked_attention(
     q, k, v, *, causal: bool, q_offset=0, k_offset=0, kv_len: Optional[int] = None,
     chunk: int = 1024, with_stats: bool = False, unroll: bool = False,
+    scale: Optional[float] = None,
 ):
     """Flash-style online-softmax attention in plain torch.
 
     q: (B, Hq, Sq, hd); k/v: (B, Hkv, Sk, hd) with Hq = G * Hkv.
     ``kv_len``: optional valid length (decode masking).
+    ``scale``: the scores' scale (None: hd ** -0.5).
     ``with_stats``: also return (m, l) running stats for cross-device merges.
     ``unroll`` is accepted for the JAX signature; the loop is always Python.
     """
@@ -61,7 +63,7 @@ def chunked_attention(
     G = Hq // Hkv
     dev = q.device
     qg = q.reshape(B, Hkv, G, Sq, hd)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     chunk = min(chunk, Sk)
     n_chunks = (Sk + chunk - 1) // chunk
     pad = n_chunks * chunk - Sk
@@ -125,12 +127,13 @@ def attn_fwd(cfg, ctx: ParallelCtx, p, x, positions, *, impl: str = "reference",
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     if kv_out is not None:
         kv_out.append((k, v))
+    scale = cfg.attention_multiplier or None
     with span("attn.core"):
         if impl == "kernel":
             out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                       causal=cfg.causal)
+                                       causal=cfg.causal, scale=scale)
         else:
-            out = chunked_attention(q, k, v, causal=cfg.causal, unroll=unroll)
+            out = chunked_attention(q, k, v, causal=cfg.causal, unroll=unroll, scale=scale)
     with span("attn.out"):
         out = out.transpose(1, 2).reshape(B, S, Hq_loc * hd)
         y = linear(p["wo"], out)
@@ -191,19 +194,21 @@ def attn_decode(cfg, ctx: ParallelCtx, p, x, cache, position, write_at, *,
     q = apply_rope(q, position[None], cfg.rope_fraction, cfg.rope_theta)
     knew = apply_rope(knew, position[None], cfg.rope_fraction, cfg.rope_theta)
 
+    scale = cfg.attention_multiplier or None
     if ctx.cp_axis:
-        out = _cp_decode_attention(ctx, q, knew, vnew, cache, position, unroll)
+        out = _cp_decode_attention(ctx, q, knew, vnew, cache, position, unroll, scale)
     else:
         cache["k"].index_copy_(2, write_at, knew)
         cache["v"].index_copy_(2, write_at, vnew)
         out = chunked_attention(q, cache["k"], cache["v"], causal=False,
-                                kv_len=position + 1, unroll=unroll)
+                                kv_len=position + 1, unroll=unroll, scale=scale)
     out = out.transpose(1, 2).reshape(B, 1, Hq_loc * hd)
     y = linear(p["wo"], out)
     return ctx.sp_enter(y), cache
 
 
-def _cp_decode_attention(ctx: ParallelCtx, q, knew, vnew, cache, position, unroll):
+def _cp_decode_attention(ctx: ParallelCtx, q, knew, vnew, cache, position, unroll,
+                         scale=None):
     """One token's attention over a KV cache cut along the sequence over the
     context-parallel axis (``attn_decode``'s CP branch, as the JAX
     package's): the write on the owning shard, attention over this shard at
@@ -220,7 +225,7 @@ def _cp_decode_attention(ctx: ParallelCtx, q, knew, vnew, cache, position, unrol
         cache[name].index_copy_(2, at, torch.where(in_range, new, old))
     acc, m, denom = chunked_attention(q, cache["k"], cache["v"], causal=False,
                                       k_offset=shard * S_loc, kv_len=position + 1,
-                                      with_stats=True, unroll=unroll)
+                                      with_stats=True, unroll=unroll, scale=scale)
     m_g = ctx.pmax_cp(m)
     corr = torch.exp(m - m_g)
     l_g = ctx.psum_cp(denom * corr)

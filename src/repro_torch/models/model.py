@@ -23,6 +23,12 @@ expert parallelism), as in the JAX package.  The capacity dispatch of
 prefill/forward takes ``impl`` too: ``"kernel"`` moves its rows with the
 dispatch's gather and combine kernels; decode keeps the reference's.
 
+Granite's multipliers (``cfg.embedding_multiplier``,
+``cfg.residual_multiplier``, ``cfg.logits_scaling``) scale the token
+embeddings, each mixer and MLP/MoE branch before its residual add, and
+divide the head's logits, on every path (forward, decode, loss); at 1.0
+each is left out, so the other configs run as before.
+
 The frontends are stubs, as in the JAX package: the model's inputs are
 precomputed frame embeddings (``frames``, the whole sequence) or patch
 embeddings (``vision_embeds``, projected by ``vis_proj`` into a prefix of
@@ -181,14 +187,25 @@ class Model:
         table = params["embed"]["w"]
         if self.ctx.tp_axis:
             if self.ctx.sp and allow_sp:
-                return vp_embed_sp(table, ids, self.ctx)
-            with named_scope("vp_embed"):
-                return vp_embed(table, ids, self.ctx)
-        return take(table, ids)
+                x = vp_embed_sp(table, ids, self.ctx)
+            else:
+                with named_scope("vp_embed"):
+                    x = vp_embed(table, ids, self.ctx)
+        else:
+            x = take(table, ids)
+        m = self.cfg.embedding_multiplier
+        return x if m == 1.0 else x * m
 
     def _head(self, params, x):
         w = params["embed"]["w"].T if self.cfg.tie_embeddings else params["lm_head"]["w"]
-        return x @ w
+        logits = x @ w
+        s = self.cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
+
+    def _branch(self, y):
+        """A mixer's or MLP/MoE's output as its residual add takes it."""
+        r = self.cfg.residual_multiplier
+        return y if r == 1.0 else y * r
 
     # ------------------------------------------------------------------ layers
     def _layer_fwd(self, lparams, x, positions, j: int, kv_out: Optional[list] = None):
@@ -196,20 +213,20 @@ class Model:
         h = ctx.sp_exit(x)
         hn = rmsnorm(lparams["ln1"], h, cfg.norm_eps)
         if cfg.is_attn_layer(j):
-            x = x + attn_fwd(cfg, ctx, lparams["attn"], hn, positions, impl=self.impl,
-                             kv_out=kv_out)
+            x = x + self._branch(attn_fwd(cfg, ctx, lparams["attn"], hn, positions,
+                                          impl=self.impl, kv_out=kv_out))
         else:
-            x = x + ssm_fwd(cfg, ctx, lparams["ssm"], hn, impl=self.impl)
+            x = x + self._branch(ssm_fwd(cfg, ctx, lparams["ssm"], hn, impl=self.impl))
         if "ln2" in lparams:
             h = ctx.sp_exit(x)
             hn = rmsnorm(lparams["ln2"], h, cfg.norm_eps)
             if cfg.is_moe_layer(j) and self.moe_impl == "capacity":
-                x = x + moe_fwd(cfg, ctx, lparams["moe"], hn, impl=self.impl)
+                x = x + self._branch(moe_fwd(cfg, ctx, lparams["moe"], hn, impl=self.impl))
             elif cfg.is_moe_layer(j):
-                x = x + MOE_IMPLS[self.moe_impl](cfg, ctx, lparams["moe"], hn)
+                x = x + self._branch(MOE_IMPLS[self.moe_impl](cfg, ctx, lparams["moe"], hn))
             else:
                 with span("mlp"):
-                    x = x + mlp_fwd(cfg, ctx, lparams["mlp"], hn)
+                    x = x + self._branch(mlp_fwd(cfg, ctx, lparams["mlp"], hn))
         return x
 
     def _block(self, params, x, positions, i: int, kv_out: Optional[list] = None):
@@ -351,11 +368,11 @@ class Model:
             mix, new = ssm_decode(cfg, ctx, lp["ssm"], hn, cache)
             for name, t in new.items():
                 cache[name].copy_(t)
-        x = x + mix
+        x = x + self._branch(mix)
         if "ln2" in lp:
             hn = rmsnorm(lp["ln2"], x, cfg.norm_eps)
             if cfg.is_moe_layer(j):
-                x = x + MOE_IMPLS[self.moe_impl](cfg, ctx, lp["moe"], hn)
+                x = x + self._branch(MOE_IMPLS[self.moe_impl](cfg, ctx, lp["moe"], hn))
             else:
-                x = x + mlp_fwd(cfg, ctx, lp["mlp"], hn, decode=True)
+                x = x + self._branch(mlp_fwd(cfg, ctx, lp["mlp"], hn, decode=True))
         return x

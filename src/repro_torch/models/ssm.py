@@ -11,6 +11,12 @@ semantic reference, the chunked SSD algorithm in plain torch:
 ``ssm_fwd(impl="kernel")`` runs the SSD scan kernel instead
 (``repro_torch.kernels.ops``).  Decode keeps O(1) state per head and
 bypasses the kernel, as in the JAX package.
+
+Two options of the port's own (the JAX package has neither): a bias on each
+causal conv (``cfg.ssm_conv_bias``, the ``conv_bias`` leaves) and the gated
+norm's group (``cfg.ssm_norm_group``; 0 keeps one group per SSD head).
+Inside ``scope.spans()`` the full-sequence block opens ``ssm.proj``,
+``ssm.conv``, ``ssm.scan``, ``ssm.norm`` and ``ssm.out``.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import chunk_len
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.scope import loop, named_scope
+from repro_torch.scope import loop, named_scope, span
 
 from .modules import _init, gated_rmsnorm, linear, linear_init, rmsnorm_init, silu
 
@@ -30,7 +36,7 @@ def ssm_init(generator, cfg, *, stacked: tuple = (), dtype=torch.bfloat16):
     DI = cfg.d_inner_p  # padded inner width (TP divisibility)
     H = cfg.ssm_heads_p
     dev = generator.device
-    return {
+    p = {
         "wx": linear_init(generator, D, DI, dtype=dtype, stacked=stacked),
         "wz": linear_init(generator, D, DI, dtype=dtype, stacked=stacked),
         "wB": linear_init(generator, D, N, dtype=dtype, stacked=stacked),
@@ -45,18 +51,39 @@ def ssm_init(generator, cfg, *, stacked: tuple = (), dtype=torch.bfloat16):
         "out_norm": rmsnorm_init(generator, DI, dtype, stacked),
         "wo": linear_init(generator, DI, D, dtype=dtype, stacked=stacked),
     }
+    if cfg.ssm_conv_bias:
+        p["conv_bias"] = {c: {"b": torch.zeros((*stacked, n), dtype=dtype, device=dev)}
+                          for c, n in (("x", DI), ("B", N), ("C", N))}
+    return p
 
 
-def _causal_conv(x, w):
-    """Depthwise causal conv along seq: x (B,S,C), w (K,C).  Adds tap by tap
-    in x's dtype, as the JAX version does (``F.conv1d`` would accumulate in
-    f32, and through cuDNN in TF32)."""
+def _conv_bias(cfg, p, which: str):
+    """The bias of conv ``which`` (``"x"``, ``"B"`` or ``"C"``), or None."""
+    return p["conv_bias"][which]["b"] if cfg.ssm_conv_bias else None
+
+
+def _norm_group(cfg, width: int) -> int:
+    """The gated norm's group: ``cfg.ssm_norm_group``, or one SSD head.  It
+    must divide this rank's inner width (a group cut across TP ranks would
+    need a reduction the block does not make)."""
+    group = cfg.ssm_norm_group or cfg.ssm_head_dim
+    if width % group:
+        raise ValueError(f"the gated norm's group of {group} channels does not divide "
+                         f"the local inner width {width}")
+    return group
+
+
+def _causal_conv(x, w, b=None):
+    """Depthwise causal conv along seq: x (B,S,C), w (K,C), an optional bias
+    b (C,).  Adds tap by tap in x's dtype, as the JAX version does
+    (``F.conv1d`` would accumulate in f32, and through cuDNN in TF32), then
+    the bias."""
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for k in range(K):
         out = out + xp[:, k:k + S, :] * w[k]
-    return out
+    return out if b is None else out + b
 
 
 def _segsum(dA):
@@ -127,30 +154,36 @@ def ssm_fwd(cfg, ctx: ParallelCtx, p, x, *, impl: str = "reference",
     """Full-sequence SSD block.  x: (B, S, D) replicated."""
     B, S, D = x.shape
     P = cfg.ssm_head_dim
-    xproj = linear(p["wx"], x)  # (B,S,DI_loc) column-parallel over heads
-    z = linear(p["wz"], x)
-    Bm = linear(p["wB"], x)  # replicated (single SSD group)
-    Cm = linear(p["wC"], x)
-    dt_raw = linear(p["wdt"], x).float()  # (B,S,H_loc)
+    with span("ssm.proj"):
+        xproj = linear(p["wx"], x)  # (B,S,DI_loc) column-parallel over heads
+        z = linear(p["wz"], x)
+        Bm = linear(p["wB"], x)  # replicated (single SSD group)
+        Cm = linear(p["wC"], x)
+        dt_raw = linear(p["wdt"], x).float()  # (B,S,H_loc)
 
-    xproj = F.silu(_causal_conv(xproj, p["conv_x"]))
-    Bm = F.silu(_causal_conv(Bm, p["conv_B"]))
-    Cm = F.silu(_causal_conv(Cm, p["conv_C"]))
+    with span("ssm.conv"):
+        xproj = F.silu(_causal_conv(xproj, p["conv_x"], _conv_bias(cfg, p, "x")))
+        Bm = F.silu(_causal_conv(Bm, p["conv_B"], _conv_bias(cfg, p, "B")))
+        Cm = F.silu(_causal_conv(Cm, p["conv_C"], _conv_bias(cfg, p, "C")))
 
-    H_loc = xproj.shape[-1] // P
-    # dt is head-wise; under TP wdt is column-sharded to the local heads
-    dt = F.softplus(dt_raw + p["dt_bias"][..., :H_loc])
-    A = -torch.exp(p["A_log"][..., :H_loc].float())
-    xh = xproj.reshape(B, S, H_loc, P)
-    if impl == "kernel":
-        y = kops.ssd_scan(xh.contiguous(), dt.contiguous(), A.contiguous(),
-                          Bm.contiguous(), Cm.contiguous(), chunk=cfg.ssm_chunk)
-    else:
-        y = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, unroll=unroll)
-    y = y + p["Dskip"][..., :H_loc][..., None] * xh.float()
-    y = y.reshape(B, S, H_loc * P).to(x.dtype)
-    y = gated_rmsnorm(p["out_norm"], y, z, cfg.norm_eps, group=cfg.ssm_head_dim)
-    out = linear(p["wo"], y)  # row-parallel
+    with span("ssm.scan"):
+        H_loc = xproj.shape[-1] // P
+        # dt is head-wise; under TP wdt is column-sharded to the local heads
+        dt = F.softplus(dt_raw + p["dt_bias"][..., :H_loc])
+        A = -torch.exp(p["A_log"][..., :H_loc].float())
+        xh = xproj.reshape(B, S, H_loc, P)
+        if impl == "kernel":
+            y = kops.ssd_scan(xh.contiguous(), dt.contiguous(), A.contiguous(),
+                              Bm.contiguous(), Cm.contiguous(), chunk=cfg.ssm_chunk)
+        else:
+            y = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, unroll=unroll)
+        y = y + p["Dskip"][..., :H_loc][..., None] * xh.float()
+        y = y.reshape(B, S, H_loc * P).to(x.dtype)
+    with span("ssm.norm"):
+        y = gated_rmsnorm(p["out_norm"], y, z, cfg.norm_eps,
+                          group=_norm_group(cfg, H_loc * P))
+    with span("ssm.out"):
+        out = linear(p["wo"], y)  # row-parallel
     return ctx.sp_enter(out)
 
 
@@ -179,15 +212,15 @@ def ssm_decode(cfg, ctx: ParallelCtx, p, x, cache):
     Cm = linear(p["wC"], x)[:, 0]
     dt_raw = linear(p["wdt"], x)[:, 0].float()
 
-    def conv_step(buf, new, w):
+    def conv_step(buf, new, w, b):
         # buf: (B, K-1, C) previous inputs; new: (B, C)
         full = torch.cat([buf, new[:, None]], dim=1)  # (B,K,C)
         out = torch.einsum("bkc,kc->bc", full, w)
-        return out, full[:, 1:]
+        return out if b is None else out + b, full[:, 1:]
 
-    cx, ncx = conv_step(cache["conv_x"], xproj, p["conv_x"])
-    cB, ncB = conv_step(cache["conv_B"], Bm, p["conv_B"])
-    cC, ncC = conv_step(cache["conv_C"], Cm, p["conv_C"])
+    cx, ncx = conv_step(cache["conv_x"], xproj, p["conv_x"], _conv_bias(cfg, p, "x"))
+    cB, ncB = conv_step(cache["conv_B"], Bm, p["conv_B"], _conv_bias(cfg, p, "B"))
+    cC, ncC = conv_step(cache["conv_C"], Cm, p["conv_C"], _conv_bias(cfg, p, "C"))
     cx = silu(cx)
     cB = silu(cB).float()
     cC = silu(cC).float()
@@ -201,7 +234,8 @@ def ssm_decode(cfg, ctx: ParallelCtx, p, x, cache):
         "bh,bn,bhp->bhpn", dt, cB, xh)
     y = torch.einsum("bn,bhpn->bhp", cC, h) + p["Dskip"][..., :H_loc, None] * xh
     y = y.reshape(B, 1, H_loc * P).to(x.dtype)
-    y = gated_rmsnorm(p["out_norm"], y, z[:, None], cfg.norm_eps, group=cfg.ssm_head_dim)
+    y = gated_rmsnorm(p["out_norm"], y, z[:, None], cfg.norm_eps,
+                      group=_norm_group(cfg, H_loc * P))
     out = linear(p["wo"], y)
     return ctx.sp_enter(out), {
         "state": h,

@@ -18,6 +18,7 @@ Megatron-style TP over axis "model" (the JAX package's table, dim for dim):
   moe router w (D,E) -> replicated          P(None, None)
   moe wg/wu/wo       -> expert-parallel     P('model', None, None)   [over E]
   ssm wx/wz/wdt      -> head-column         P(None, 'model')
+  ssm conv_x, its bias -> channel-sharded   P(None, 'model'), P('model')
   norms, B/C         -> replicated
 (stacked block params carry a leading None for the n_blocks dim.)  The
 serving caches (``cache_specs``) shard attention k/v and the SSM state on
@@ -108,6 +109,8 @@ def _spec_for(path: tuple, ndim: int, tp: str) -> PartitionSpec:
             return mk(None, tp)
         if leaf in ("conv_B", "conv_C"):
             return mk(None, None)
+    if gparent == "conv_bias":  # conv_bias/{x,B,C}/b: sharded as its conv's channels
+        return mk(tp) if parent == "x" else mk(None)
     # fallback: replicate
     return P(*([None] * ndim))
 

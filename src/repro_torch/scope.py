@@ -41,7 +41,8 @@ def named_scope(name: str):
 # -- run-time spans: the layers of a forward, for a profiler to record
 SPANS = ("model.forward", "model.embed", "model.head",
          "attn.qkv", "attn.rope", "attn.core", "attn.out", "mlp",
-         "moe.router", "moe.positions", "moe.gather", "moe.experts", "moe.combine")
+         "moe.router", "moe.positions", "moe.gather", "moe.experts", "moe.combine",
+         "ssm.proj", "ssm.conv", "ssm.scan", "ssm.norm", "ssm.out")
 _spans_on = False
 _OFF = contextlib.nullcontext()
 

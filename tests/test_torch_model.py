@@ -26,6 +26,7 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.configs import base as jax_base  # noqa: E402
 from repro_torch.configs import SHAPES, ArchConfig, get_config, input_specs, skip_reason  # noqa: E402
+from repro_torch.configs.base import PORT_FIELDS  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -120,6 +121,10 @@ def test_config_port_matches_jax():
         for smoke in (False, True):
             j = dataclasses.asdict(jax_config(arch, smoke=smoke))
             t = dataclasses.asdict(get_config(arch, smoke=smoke))
+            # the port's own fields, which the JAX package lacks, at their defaults
+            own = {k: t.pop(k) for k in PORT_FIELDS}
+            assert own == {f.name: f.default for f in dataclasses.fields(ArchConfig)
+                           if f.name in PORT_FIELDS}
             assert j == t
             jc, tc = jax_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
             assert (jc.hd, jc.heads, jc.kv_heads, jc.vocab_p, jc.block_period,

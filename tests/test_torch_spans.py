@@ -3,9 +3,11 @@ reduction of a trace of them (``scripts/layer_spans.py``).
 
 Off (the default) a forward enters no ``record_function`` and its logits
 equal those with the spans on, bit for bit.  On, a kineto trace cut to
-user-scope ranges records exactly ``scope.SPANS``' names for a dense and a
-MoE model at SMOKE size: each ``model.*`` span once a forward and each
-layer's span once a layer, all nested inside ``model.forward``.  A verifier
+user-scope ranges records exactly ``scope.SPANS``' names for a dense, a
+MoE and a hybrid model at SMOKE size: each ``model.*`` span once a forward
+and each layer's span once a layer of its kind (the ``ssm.*`` spans once a
+Mamba-2 layer, the ``attn.*`` spans once an attention layer), all nested
+inside ``model.forward``.  A verifier
 trace of a forward with the spans on has no profiler nodes and equals the
 trace with them off.  On hand-made events, a kernel's device time goes to
 the innermost program span its launch call lies in, an idle gap to the
@@ -26,10 +28,17 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-LAYER = {"dense": ("attn.qkv", "attn.rope", "attn.core", "attn.out", "mlp"),
-         "moe": ("attn.qkv", "attn.rope", "attn.core", "attn.out", "moe.router",
-                 "moe.positions", "moe.gather", "moe.experts", "moe.combine")}
-ARCH = {"dense": "chatglm3_6b", "moe": "granite_moe_3b"}
+ATTN = ("attn.qkv", "attn.rope", "attn.core", "attn.out")
+SSM = ("ssm.proj", "ssm.conv", "ssm.scan", "ssm.norm", "ssm.out")
+MOE = ("moe.router", "moe.positions", "moe.gather", "moe.experts", "moe.combine")
+LAYER = {"dense": ATTN + ("mlp",), "moe": ATTN + MOE, "hybrid": ATTN + SSM + MOE}
+ARCH = {"dense": "chatglm3_6b", "moe": "granite_moe_3b", "hybrid": "granite_4_0_h_small"}
+
+
+def layer_spans(cfg, i: int) -> tuple:
+    """The spans layer ``i`` of ``cfg`` opens, once each."""
+    mixer = ATTN if cfg.is_attn_layer(i) else SSM
+    return mixer + (MOE if cfg.is_moe_layer(i) else ("mlp",))
 
 
 def _layer_spans():
@@ -48,7 +57,7 @@ def _model(kind: str, impl: str = "kernel"):
     return model, params, {"tokens": tokens}
 
 
-@pytest.mark.parametrize("kind", ["dense", "moe"])
+@pytest.mark.parametrize("kind", ["dense", "moe", "hybrid"])
 def test_spans_off_enter_no_record_function_and_change_no_logit(kind, monkeypatch):
     from torch.autograd import profiler
 
@@ -68,8 +77,10 @@ def test_spans_off_enter_no_record_function_and_change_no_logit(kind, monkeypatc
             on = model.forward(params, batch)
         assert not scope._spans_on
         again = model.forward(params, batch)
-    L = model.cfg.n_layers
-    assert len(entered) == 3 + L * len(LAYER[kind])  # and none after the block
+    cfg = model.cfg
+    per_layer = [n for i in range(cfg.n_layers) for n in layer_spans(cfg, i)]
+    assert len(entered) == 3 + len(per_layer)  # and none after the block
+    assert sorted(entered) == sorted(per_layer + ["model.forward", "model.embed", "model.head"])
     assert torch.equal(off, on) and torch.equal(off, again)
 
 
@@ -83,7 +94,7 @@ def test_span_off_is_one_shared_null_context():
     assert not scope._spans_on
 
 
-@pytest.mark.parametrize("kind", ["dense", "moe"])
+@pytest.mark.parametrize("kind", ["dense", "moe", "hybrid"])
 def test_spans_recorded_under_a_user_scope_trace(kind):
     ls = _layer_spans()
     model, params, batch = _model(kind)
@@ -97,15 +108,17 @@ def test_spans_recorded_under_a_user_scope_trace(kind):
     names = [n for n, _, _ in ranges]
     assert set(names) == {"model.forward", "model.embed", "model.head"} | set(LAYER[kind])
     assert set(names) <= set(scope.SPANS)
-    L = model.cfg.n_layers
+    cfg = model.cfg
+    per_layer = [n for i in range(cfg.n_layers) for n in layer_spans(cfg, i)]
     for name in set(names):
-        assert names.count(name) == forwards * (1 if name.startswith("model.") else L), name
+        want = 1 if name.startswith("model.") else per_layer.count(name)
+        assert names.count(name) == forwards * want, name
     outer = [(s, e) for n, s, e in ranges if n == "model.forward"]
     for n, s, e in ranges:
         assert any(s0 <= s and e <= e0 for s0, e0 in outer), n
 
 
-@pytest.mark.parametrize("kind", ["dense", "moe"])
+@pytest.mark.parametrize("kind", ["dense", "moe", "hybrid"])
 def test_verifier_trace_has_no_profiler_nodes_with_spans_on(kind):
     model, params, batch = _model(kind, impl="reference")
     shapes = (tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), params),
@@ -185,10 +198,22 @@ def test_a_trace_without_program_spans_reads_null():
     bare = [e for e in EVENTS if e[0] != "span" or e[1] == "request"]
     red = ls.reduce_spans(bare, "request", ())
     assert red["program_spans"] == {}
-    assert red["readings"] == {"moe_dispatch_ms": None, "forward_idle_pct": None,
-                               "launches_per_forward": None}
+    assert red["readings"] == {"moe_dispatch_ms": None, "ssm_mixer_ms": None,
+                               "forward_idle_pct": None, "launches_per_forward": None}
     assert red["outside_device_s"] == pytest.approx(430e-9)
     # a dense forward has no dispatch to read
     dense = [e for e in EVENTS if e[1] != "moe.gather"]
     r = ls.reduce_spans(dense, "request", scope.SPANS)["readings"]
     assert r["moe_dispatch_ms"] is None and r["launches_per_forward"] == 3
+    assert r["ssm_mixer_ms"] is None
+
+
+def test_ssm_mixer_ms_sums_the_ssm_spans_self_device_time():
+    # the layer's span as a Mamba-2 mixer's scan, and a second kernel in its norm
+    events = [e if e[1] != "moe.gather" else _ev("span", "ssm.scan", 300, 400)
+              for e in EVENTS]
+    events += [_ev("span", "ssm.norm", 700, 800), _ev("launch", "cudaLaunchKernel", 710, 715, 5),
+               _ev("device", "gated_norm", 720, 770, 5)]
+    r = _layer_spans().reduce_spans(events, "request", scope.SPANS)["readings"]
+    assert r["ssm_mixer_ms"] == pytest.approx((200e-9 + 50e-9) * 1e3)
+    assert r["moe_dispatch_ms"] is None
