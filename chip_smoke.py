@@ -135,6 +135,7 @@ from repro_torch.configs import ShapeSpec, get_config, input_specs  # noqa: E402
 from repro_torch.configs.base import SHAPES, ShapeDtype  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -608,6 +609,18 @@ SSD_CASES = [
     (1, 256, 4, 128, 64, 64, torch.float32, "slow"),
 ]
 SSD_CASES = [c if len(c) == 9 else (*c, None) for c in SSD_CASES]
+# B, S, channels of x, B and C, taps, dtype, bias: the Mamba-2 mixer's fused
+# conv (kernels/causal_conv.py); a seventh entry names a main path's shape,
+# which is timed
+CONV_CASES = [
+    # granite-4.0-h-small's benchmark cell: 8 x 4096, x 8192 wide, biases
+    (8, 4096, (8192, 128, 128), 4, torch.bfloat16, True, "granite_4_0_h_small"),
+    (4, 4096, (2048, 128, 128), 4, torch.bfloat16, False, "mamba2_130m"),  # its prefill
+    (8, 4096, (8192, 128, 128), 4, torch.float32, True),
+    (3, 3, (64, 16, 16), 4, torch.bfloat16, True),  # S < K
+    (3, 1001, (520, 24, 136), 3, torch.float32, False),  # rows no block divides
+]
+CONV_CASES = [c if len(c) == 7 else (*c, None) for c in CONV_CASES]
 
 
 def emit(phase: str, **fields) -> None:
@@ -783,19 +796,21 @@ def init_mamba2(model, gen: torch.Generator) -> dict:
 def counts() -> dict:
     return {"flash_attention": fa.flash_attention.launches,
             "rmsnorm": rn.rmsnorm.launches, "ssd_scan": ssd.ssd_scan.launches,
+            "causal_conv": cc.causal_conv.launches,
             "moe_gather": md.moe_gather.launches, "moe_combine": md.moe_combine.launches}
 
 
 def reset_counts() -> None:
     fa.flash_attention.launches = rn.rmsnorm.launches = ssd.ssd_scan.launches = 0
-    md.moe_gather.launches = md.moe_combine.launches = 0
+    cc.causal_conv.launches = md.moe_gather.launches = md.moe_combine.launches = 0
 
 
 def want_counts(flash: int = 0, ssd_scans: int = 0, moe: int = 0) -> dict:
     """``counts()`` as a forward of ``flash`` attention layers, ``ssd_scans``
-    SSD layers and ``moe`` MoE layers on the kernel path launches them."""
+    SSD layers (a scan and a fused conv each) and ``moe`` MoE layers on the
+    kernel path launches them."""
     return {"flash_attention": flash, "rmsnorm": 0, "ssd_scan": ssd_scans,
-            "moe_gather": moe, "moe_combine": moe}
+            "causal_conv": ssd_scans, "moe_gather": moe, "moe_combine": moe}
 
 
 def moe_layers(cfg, layers: int) -> int:
@@ -1028,6 +1043,57 @@ def phase_ssd(gen) -> dict:
     if failed:
         raise AssertionError(f"ssd_scan disagrees with its plain version in "
                              f"{len(failed)} case(s): {failed}")
+    return rows
+
+
+def conv_args(gen, B, S, widths, K, dtype, bias: bool) -> tuple:
+    """The fused conv's inputs for one CONV_CASES row, flat: x, w (and b)
+    of each input, N(0, 1) in ``dtype``."""
+    out = []
+    for C in widths:
+        out += [randn(gen, (B, S, C), dtype), randn(gen, (K, C), dtype)]
+        if bias:
+            out.append(randn(gen, (C,), dtype))
+    return tuple(out)
+
+
+def phase_causal_conv(gen) -> dict:
+    """The Mamba-2 mixer's fused conv (x, B and C in one launch) against its
+    plain version, bit for bit, in every case; the rows of a main path's
+    shape timed beside their bound (bytes: every input, weight and bias read
+    once, every output written once) and the plain version's time."""
+    rows, failed = {}, []
+    for B, S, widths, K, dt, bias, name in CONV_CASES:
+        args = conv_args(gen, B, S, widths, K, dt, bias)
+        per = 3 if bias else 2
+
+        def fn(*a, plain=False, per=per):
+            convs = [(*a[i:i + 2], a[i + 2] if per == 3 else None)
+                     for i in range(0, len(a), per)]
+            return (cc.causal_conv_plain if plain else cc.causal_conv)(*convs)
+
+        got, want = fn(*args), fn(*args, plain=True)
+        torch.cuda.synchronize()
+        case = {"shape": [B, S, list(widths)], "taps": K, "bias": bias, "dtype": str(dt),
+                "equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+                "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                                   for g, w in zip(got, want))}
+        if not case["equal"]:
+            failed.append(case)
+        del got, want
+        if name:
+            moved = nbytes(*args) + sum(nbytes(x) for x in args[::per])  # + the outputs
+            row = {"max_abs_err": case["max_abs_err"], "ms": time_ms(fn, args),
+                   "call_ms": call_ms(fn, args),
+                   "plain_ms": time_ms(lambda *a: fn(*a, plain=True), args, iters=4),
+                   "library_ms": None}  # no single PyTorch call adds the bias and silu
+            row["bound_ms"], row["bound_by"] = bound(moved)
+            case.update(row, path=name)
+            rows[name] = row
+        emit("kernel causal_conv", ok=case["equal"], **case)
+    if failed:
+        raise AssertionError(f"causal_conv differs from its plain version in {len(failed)} "
+                             f"case(s): {failed}")
     return rows
 
 
@@ -2490,6 +2556,7 @@ def main() -> int:
             fa_rows = phase_flash(gen)
             rn_row = phase_rmsnorm(gen)
             ssd_rows = phase_ssd(gen_ssm)
+            conv_rows = phase_causal_conv(gen_ssm)
         finish_host_phases()
     # training runs with grad enabled, outside inference_mode
     train_launches = phase_train()
@@ -2624,6 +2691,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd_scan.py:65",
          "launches": ssm_launches["ssd_scan"], **ssd_rows["mamba2_130m"],
          **{f"{name}_shape": row for name, row in ssd_rows.items() if name != "mamba2_130m"}},
+        {"name": "causal_conv", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+         "replaces": "none (the JAX package leaves the conv to XLA)",
+         "launches": ssm_launches["causal_conv"], **conv_rows["mamba2_130m"],
+         **{f"{name}_shape": row for name, row in conv_rows.items() if name != "mamba2_130m"}},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2631,7 +2703,8 @@ def main() -> int:
         row["launches_by_path"] = {path: [c[row["name"]] for c in n] if isinstance(n, list)
                                    else n[row["name"]] for path, n in paths.items()}
     extra = ("launches_by_path", *(f"{name}_shape" for name in fa_rows if name != "qwen3_4b"),
-             *(f"{name}_shape" for name in ssd_rows if name != "mamba2_130m"))
+             *(f"{name}_shape" for name in ssd_rows if name != "mamba2_130m"),
+             *(f"{name}_shape" for name in conv_rows if name != "mamba2_130m"))
     emit("run", seconds=time.perf_counter() - t_run, card=card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in kernels]}))

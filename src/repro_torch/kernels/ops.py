@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch._C import _functorch
 
+from . import causal_conv as _cc
 from . import flash_attention as _fa
 from . import moe_dispatch as _moe
 from . import rmsnorm as _rn
@@ -71,3 +72,12 @@ def moe_combine(eout, slot, w, local):
     if eout.device.type == "cpu":
         return _moe.moe_combine_plain(eout, slot, w, local)
     return _moe.moe_combine(eout, slot, w, local)
+
+
+def causal_conv(*convs):
+    """Each ``(x, w, b)`` of ``convs``: x (B, S, C), w (K, C), b (C,) or None
+    -> ``silu(causal_conv(x, w) + b)`` (B, S, C); a tuple, one launch."""
+    _refuse_autograd("causal_conv", *(t for conv in convs for t in conv if t is not None))
+    if convs[0][0].device.type == "cpu":
+        return _cc.causal_conv_plain(*convs)
+    return _cc.causal_conv(*convs)

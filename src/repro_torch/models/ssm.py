@@ -8,7 +8,8 @@ semantic reference, the chunked SSD algorithm in plain torch:
   across chunks: S_c   <- S_{c-1} · Π decay + S_c      (short loop over chunks)
   offset:        Y_off  = decay_from_start · C S_{c-1}
 
-``ssm_fwd(impl="kernel")`` runs the SSD scan kernel instead
+``ssm_fwd(impl="kernel")`` runs the SSD scan kernel instead, and the three
+causal convs with their biases and silu as one kernel
 (``repro_torch.kernels.ops``).  Decode keeps O(1) state per head and
 bypasses the kernel, as in the JAX package.
 
@@ -162,9 +163,12 @@ def ssm_fwd(cfg, ctx: ParallelCtx, p, x, *, impl: str = "reference",
         dt_raw = linear(p["wdt"], x).float()  # (B,S,H_loc)
 
     with span("ssm.conv"):
-        xproj = F.silu(_causal_conv(xproj, p["conv_x"], _conv_bias(cfg, p, "x")))
-        Bm = F.silu(_causal_conv(Bm, p["conv_B"], _conv_bias(cfg, p, "B")))
-        Cm = F.silu(_causal_conv(Cm, p["conv_C"], _conv_bias(cfg, p, "C")))
+        convs = [(t, p[f"conv_{c}"], _conv_bias(cfg, p, c))
+                 for t, c in ((xproj, "x"), (Bm, "B"), (Cm, "C"))]
+        if impl == "kernel":
+            xproj, Bm, Cm = kops.causal_conv(*convs)
+        else:
+            xproj, Bm, Cm = (F.silu(_causal_conv(*conv)) for conv in convs)
 
     with span("ssm.scan"):
         H_loc = xproj.shape[-1] // P

@@ -8,8 +8,16 @@ granite-4.0-h-small at its published widths.
   configurations, cut in depth) with K1 called through that older entry
   equals the forward as it runs: the new fields at their defaults change no
   logit.
+- The Mamba-2 mixer's fused conv kernel (``kernels/causal_conv.py``) equals
+  its plain version bit for bit: at the benchmark cell's mixer (8 x 4096,
+  x 8192 wide, B and C 128, 4 taps, biases) in bfloat16 and float32, at
+  mamba2_130m's (no bias), and at ragged shapes (short sequences, other tap
+  counts, a row count no block divides).  A granite-4.0-h-small stage's
+  logits with the kernel equal those with the conv routed to the plain
+  version.
 - granite-4.0-h-small's first pipeline stage (20 of its 40 layers) runs 18
-  K3, 2 K1 and 20 ``moe_gather`` and ``moe_combine`` launches a forward; cut
+  K3, 18 fused convs, 2 K1 and 20 ``moe_gather`` and ``moe_combine``
+  launches a forward; cut
   to one period and run in float32, its logits agree with the benchmark's
   plain reference (``port_bench/reference/hybrid.py``) on the benchmark's
   weights, with ``dt_bias`` and ``A_log`` as Mamba-2 draws them so that state
@@ -28,6 +36,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_dispatch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -101,14 +110,66 @@ def test_card_granite_cell_launches(hopper):
     model = Model(cfg, impl="kernel", device=hopper)
     params = model.init(torch.Generator(device=hopper).manual_seed(3))
     batch = {"tokens": torch.randint(0, cfg.vocab, (1, 2048), device=hopper)}
-    counters = (ssd.ssd_scan, fa.flash_attention, moe_dispatch.moe_gather,
+    counters = (ssd.ssd_scan, cc.causal_conv, fa.flash_attention, moe_dispatch.moe_gather,
                 moe_dispatch.moe_combine)
     before = [c.launches for c in counters]
     with torch.inference_mode():
         logits = model.forward(params, batch)
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(counters, before)] == [18, 2, 20, 20]
+    assert [c.launches - n for c, n in zip(counters, before)] == [18, 18, 2, 20, 20]
     assert torch.isfinite(logits).all()
+
+
+# (B, S, channels of each input, taps, bias): the benchmark cell's mixer,
+# mamba2_130m's prefill (inner width 1536 padded to 2048, no bias), then
+# sequences shorter than the taps, a sequence no block of 256 rows divides,
+# one input alone, and the largest tap count
+CONV_CASES = [(8, 4096, (8192, 128, 128), 4, True), (4, 4096, (2048, 128, 128), 4, False),
+              (3, 3, (64, 16, 16), 4, True), (2, 1, (8, 8), 2, False),
+              (3, 1001, (520, 24, 136), 3, True), (1, 300, (256,), 8, False),
+              (2, 513, (32, 16, 16), 1, True)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,S,widths,K,bias", CONV_CASES, ids=str)
+def test_card_causal_conv_equals_plain(hopper, B, S, widths, K, bias, dtype):
+    gen = torch.Generator(device=hopper).manual_seed(5)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=hopper).to(dtype)
+
+    convs = []
+    for C in widths:
+        x = draw(B, S, C)
+        x[:, ::7, ::3] = 0.0  # exact zeros: signed zero products
+        convs.append((x, draw(K, C), draw(C) if bias else None))
+    n = cc.causal_conv.launches
+    got = cc.causal_conv(*convs)
+    torch.cuda.synchronize()
+    assert cc.causal_conv.launches - n == 1
+    for y, want in zip(got, cc.causal_conv_plain(*convs)):
+        assert y.dtype == dtype and torch.equal(y, want)
+
+
+@pytest.mark.card
+def test_card_granite_stage_logits_equal_plain_conv(hopper, monkeypatch):
+    cfg = STAGE
+    model = Model(cfg, impl="kernel", device=hopper)
+    gen = torch.Generator(device=hopper).manual_seed(6)
+    params = model.init(gen)
+    for block in params["blocks"]:  # the init's zero biases would hide a dropped bias
+        if "ssm" in block:
+            for leaf in block["ssm"]["conv_bias"].values():
+                leaf["b"].normal_(generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 2048), generator=gen, device=hopper)}
+    n = cc.causal_conv.launches
+    with torch.inference_mode():
+        got = model.forward(params, batch)
+        assert cc.causal_conv.launches - n == 18
+        monkeypatch.setattr(ops, "causal_conv", cc.causal_conv_plain)
+        want = model.forward(params, batch)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.card
