@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port once on one GPU and hold every kernel to its
-plain version.
+"""Drive the PyTorch/CUDA port once on one GPU: time every kernel and hold
+every model path to its reference.
 
 Run from the repository root on a machine with one H100:
 
@@ -9,9 +9,13 @@ Run from the repository root on a machine with one H100:
 Phases, one JSON line each: device (name, capability, power limit, kernel
 builds), kernel resources (each kernel's registers, stack and spills from
 the ``nvcc -Xptxas -v`` log, and its dynamic shared memory), kernel
-flash_attention, kernel rmsnorm and kernel ssd_scan (kernel against its
-plain PyTorch version on the card, with times), and beside them, in a
-child process on the card's host, lint (the port's lint tier on four
+flash_attention, kernel rmsnorm, kernel ssd_scan and kernel causal_conv
+(each kernel at the main paths' shapes of its table in
+``tests/card_cases.py``, held to its plain version with the table's
+tolerance and timed beside it and its bound; every row of those tables,
+edge cases included, is checked by the card tests,
+``JAX_PLATFORMS=cpu python -m pytest -q -m card tests/``), and
+beside them, in a child process on the card's host, lint (the port's lint tier on four
 dense archs at full width, 2 layers, tp 1, tp 4 and SP, finding-free; an
 injected dropped all_reduce flagged at its line; the rule registry's
 static check clean) and dryrun (three cells of the multi-pod dry run on
@@ -131,6 +135,10 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.append(str(Path(__file__).resolve().parent / "tests"))
+from card_cases import (CONV_CASES, DISPATCH_CASES, FA_CASES, FA_TOL, RN_CASES,  # noqa: E402
+                        RN_TOL, SSD_CASES, SSD_TOL, close, conv_inputs, fa_inputs, mamba2_dt_A, randn,
+                        recorded_dispatch, rn_inputs, ssd_inputs)
 from repro_torch.configs import ShapeSpec, get_config, input_specs  # noqa: E402
 from repro_torch.configs.base import SHAPES, ShapeDtype  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
@@ -138,7 +146,6 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import analysis  # noqa: E402
@@ -165,17 +172,6 @@ SEED = 0
 PEAK_FLOPS = {torch.bfloat16: analysis.PEAK_FLOPS, torch.float32: analysis.PEAK_FLOPS_F32}
 PEAK_BYTES = analysis.HBM_BW
 L2_BYTES = 50 * 2**20  # H100 SXM
-# Flash attention, (allclose rtol = atol, relative RMS error).  A causal row
-# over n keys of N(0, 1) values has outputs of std about sqrt(e / n), about
-# 0.07 at n = 512, so a bf16 limit near that size would pass a dropped or
-# mis-masked KV tile (0.01-0.03 on the rows it touches).  1e-2 still admits
-# one bf16 ulp on outputs of 1-4 (rows with few keys); an H100 measured
-# 0.0039 max abs at the main shape.
-FA_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-4, 1e-4)}
-# RMSNorm, in the same form: the kernel rounds where the plain version does;
-# an f32 rsqrt that differs in its last bit can move a bf16 result by one ulp
-# (2^-8 relative).
-RN_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 # Model logits (RMS about 1) from two bf16 paths that round attention's p at
 # different tile boundaries in each of 36 layers.  A CPU emulation (key
 # chunks of 64 against 1024, S=512, 36 layers at full width) differed by
@@ -191,14 +187,6 @@ LOGIT_MAX_ABS = 0.5
 # the card (scripts/frontend_logit_bounds.py --device cuda: both plain paths,
 # no kernel) read 2.77% and 0.164; the bounds leave about 3x headroom.
 VLM_LOGIT_BOUNDS = (8e-2, 0.5)
-# SSD scan, (allclose rtol = atol, relative RMS error).  Kernel and plain
-# version compute in f32 from the same inputs (bf16 widened exactly) in
-# another summation order: on an H100 the largest error, 3.0e-4 at the main
-# shape, was under a third of the allclose limit there, and relative RMS
-# errors were at most 2.3e-6 (PERF.md).  A kernel that drops or mis-decays the state
-# carried between chunks moves the slow-decay cases by tens of percent
-# (their "carry_rel_rms").
-SSD_TOL = (1e-3, 1e-5)
 # mamba2_130m logits (RMS about 1), (relative RMS error, max abs error).  The
 # SSD layers are f32 inside, but a bf16 rounding of their output that moves
 # with f32 summation order grows through the next 23 layers.  A CPU emulation
@@ -507,122 +495,6 @@ MOE_DISPATCH_TOL = (5e-2, 2e-2)
 # MOE_BOUNDS["tp"].
 MOE_TP_LAYERS = 4
 
-FA_CASES = [  # B, Hq, Hkv, Sq, Sk, D, dtype, causal, the name of a main
-    # path's shape, which is timed (None: checked only), and that path's
-    # softmax scale (None: the default, 1 / sqrt(D))
-    # qwen3_4b's prefill shape, and chatglm3_6b's (32 q-heads, 2 KV heads padded to 16)
-    (2, 32, 16, 1024, 1024, 128, torch.bfloat16, True, "qwen3_4b"),
-    (1, 8, 4, 1024, 1024, 128, torch.bfloat16, True, "tp_forward"),  # llama3_8b TP-4, a rank
-    (2, 32, 32, 1024, 1024, 128, torch.bfloat16, True, "qwen1_5_4b"),  # prefill (MHA)
-    # gemma_2b (head dim 256, 1 KV head padded to 16): its prefill, a TP-4
-    # rank's shape and a DP-2 rank's (the dp_forward phase)
-    (2, 16, 16, 1024, 1024, 256, torch.bfloat16, True, "gemma_2b"),
-    (1, 4, 4, 1024, 1024, 256, torch.bfloat16, True, "gemma_2b_tp4"),
-    (1, 16, 16, 1024, 1024, 256, torch.bfloat16, True, "gemma_2b_dp2"),
-    (1, 8, 2, 96, 160, 32, torch.float32, False),  # not a multiple of the tiles
-    (1, 8, 2, 96, 160, 32, torch.bfloat16, False),
-    (1, 4, 2, 96, 160, 64, torch.bfloat16, True),  # causal Sq < Sk, top-left
-    (1, 4, 1, 160, 96, 64, torch.float32, True),  # causal Sq > Sk, top-left
-    (1, 2, 2, 256, 256, 128, torch.float32, True),
-    (2, 4, 2, 128, 128, 64, torch.bfloat16, True),
-    # bf16 edges of the TMA tiles: Sq, Sk past a 128-row tile's end with B*H > 1
-    # (rows past a head's end must read as zeros), GQA groups of 4 and 8,
-    # causal Sq < Sk and Sq > Sk, and D = 32 and 64
-    (2, 8, 2, 200, 330, 128, torch.bfloat16, True),
-    (2, 8, 1, 330, 200, 64, torch.bfloat16, True),
-    (2, 16, 4, 257, 257, 128, torch.bfloat16, False),
-    (2, 8, 1, 100, 100, 32, torch.bfloat16, True),
-    # D = 256 (two consumer warpgroups on a 128-row q-tile, 80-key KV tiles,
-    # O stored from registers): Sq, Sk past a tile with B*H > 1, causal Sq < Sk
-    # and Sq > Sk, non-causal, MQA (Hkv = 1), and the f32 path; Sq ending
-    # inside the second consumer's rows (100) or just past a q-tile (130),
-    # causal Sq < Sk and Sq > Sk across a 128-row boundary, Sk no multiple
-    # of the KV tile (130, 200)
-    (2, 4, 2, 200, 330, 256, torch.bfloat16, True),
-    (2, 4, 1, 330, 200, 256, torch.bfloat16, True),
-    (2, 8, 2, 257, 257, 256, torch.bfloat16, False),
-    (2, 8, 1, 128, 128, 256, torch.bfloat16, True),
-    (2, 4, 1, 100, 100, 256, torch.bfloat16, True),
-    (1, 4, 2, 130, 200, 256, torch.bfloat16, True),
-    (2, 2, 1, 200, 130, 256, torch.bfloat16, True),
-    (1, 4, 4, 100, 200, 256, torch.bfloat16, False),
-    (2, 4, 2, 130, 130, 256, torch.bfloat16, False),
-    (1, 4, 1, 100, 160, 256, torch.float32, True),
-    (1, 2, 2, 96, 130, 256, torch.float32, False),
-    # D = 80 (D=128's tiles, columns 80-127 zero-filled by TMA): hubert_xlarge's
-    # prefill (non-causal MHA) and a TP-4 rank's shape; Sq, Sk past a tile
-    # with B*H > 1, causal Sq < Sk and Sq > Sk, GQA, MQA, non-causal, and the
-    # f32 path
-    (2, 16, 16, 1024, 1024, 80, torch.bfloat16, False, "hubert_xlarge"),
-    (2, 4, 4, 1024, 1024, 80, torch.bfloat16, False),
-    (2, 4, 2, 200, 330, 80, torch.bfloat16, True),
-    (2, 4, 1, 330, 200, 80, torch.bfloat16, True),
-    (2, 8, 2, 257, 257, 80, torch.bfloat16, False),
-    (2, 8, 1, 128, 128, 80, torch.bfloat16, True),
-    (1, 4, 1, 100, 160, 80, torch.float32, True),
-    (1, 2, 2, 96, 130, 80, torch.float32, False),
-    # internvl2_26b's prefill: 48 q-heads over 8 KV heads padded to 16 (G = 3)
-    (2, 48, 16, 1024, 1024, 128, torch.bfloat16, True, "internvl2_26b"),
-    # granite_moe_3b (head dim 64, 24 q-heads over 8 KV heads padded to 32
-    # over 16): its prefill and a TP-4 rank's shape (the tp_forward phase)
-    (2, 32, 16, 1024, 1024, 64, torch.bfloat16, True, "granite_moe_3b"),
-    (1, 8, 4, 1024, 1024, 64, torch.bfloat16, True, "granite_moe_3b_tp4"),
-    # llama3_8b at TP 2 (32 q-heads over 8 KV heads padded to 16, half a
-    # rank): a rank of the tpdp_forward and pipeline_forward phases
-    (1, 16, 8, 1024, 1024, 128, torch.bfloat16, True, "tpdp_forward"),
-    # moonshot_v1_16b's prefill (MHA, 16 heads)
-    (2, 16, 16, 1024, 1024, 128, torch.bfloat16, True, "moonshot_v1_16b"),
-    # granite-4.0-h-small's prefill of 8 x 4096 (32 q-heads over 8 KV heads,
-    # G = 4) at its own softmax scale, 1/128, and at the default as well
-    (8, 32, 8, 4096, 4096, 128, torch.bfloat16, True, "granite_4_0_h_small", 1 / 128),
-]
-FA_CASES = [(*c, *(None,) * (10 - len(c))) for c in FA_CASES]
-RN_CASES = [  # rows, D, dtype; the first two are timed
-    (2048, 2560, torch.bfloat16),  # d_model rows of a (2, 1024) prefill
-    (2 * 32 * 1024, 128, torch.bfloat16),  # its q-norm rows
-    (7, 512, torch.float32),  # a row count that is no power of two
-    (7, 512, torch.bfloat16),
-]
-# B, S, H, P, N, chunk, dtype, dt: "mamba2" draws dt = softplus(N(0, 1) +
-# dt_bias) with dt_bias and A as Mamba-2 initializes them; "slow" draws dt
-# uniform in [1e-3, 1e-2] and A = -exp(N(0, 1)), so that a chunk of 128 keeps
-# about half its state (median exp(-0.7)) and the carry between chunks shows.
-# A ninth entry names a main path's shape, which is timed.
-SSD_CASES = [
-    (4, 4096, 32, 64, 128, 128, torch.bfloat16, "mamba2", "mamba2_130m"),  # its prefill
-    # granite-4.0-h-small's benchmark cell: 8 x 4096, 128 heads
-    (8, 4096, 128, 64, 128, 128, torch.bfloat16, "mamba2", "granite_4_0_h_small"),
-    (1, 5, 2, 16, 8, 128, torch.float32, "mamba2"),  # S < chunk: q = 5
-    (2, 3, 4, 32, 16, 128, torch.float32, "mamba2"),  # q = 3
-    (1, 100, 2, 64, 128, 128, torch.float32, "mamba2"),  # q = 100, past one half-chunk
-    (1, 96, 3, 16, 24, 32, torch.float32, "slow"),  # 3 chunks, N not a multiple of 16
-    (2, 256, 4, 32, 64, 64, torch.float32, "slow"),  # 4 chunks
-    (2, 2048, 8, 64, 128, 128, torch.float32, "slow"),  # 16 chunks: the carry case
-    (2, 2048, 8, 64, 128, 128, torch.bfloat16, "slow"),
-    # the bf16 path's other shapes: Jamba's head dim (H=128, P=128, N=128),
-    # q = 100 and 3 ragged chunks, N not a multiple of 16, P = 16; P = 128 in f32
-    (1, 2048, 128, 128, 128, 128, torch.bfloat16, "slow"),
-    (1, 100, 2, 64, 128, 128, torch.bfloat16, "mamba2"),
-    (1, 300, 3, 32, 40, 100, torch.bfloat16, "slow"),
-    (1, 96, 3, 16, 24, 32, torch.bfloat16, "slow"),
-    (2, 256, 4, 16, 64, 64, torch.bfloat16, "mamba2"),
-    (1, 256, 4, 128, 64, 64, torch.float32, "slow"),
-]
-SSD_CASES = [c if len(c) == 9 else (*c, None) for c in SSD_CASES]
-# B, S, channels of x, B and C, taps, dtype, bias: the Mamba-2 mixer's fused
-# conv (kernels/causal_conv.py); a seventh entry names a main path's shape,
-# which is timed
-CONV_CASES = [
-    # granite-4.0-h-small's benchmark cell: 8 x 4096, x 8192 wide, biases
-    (8, 4096, (8192, 128, 128), 4, torch.bfloat16, True, "granite_4_0_h_small"),
-    (4, 4096, (2048, 128, 128), 4, torch.bfloat16, False, "mamba2_130m"),  # its prefill
-    (8, 4096, (8192, 128, 128), 4, torch.float32, True),
-    (3, 3, (64, 16, 16), 4, torch.bfloat16, True),  # S < K
-    (3, 1001, (520, 24, 136), 3, torch.float32, False),  # rows no block divides
-]
-CONV_CASES = [c if len(c) == 7 else (*c, None) for c in CONV_CASES]
-
-
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -691,10 +563,6 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def randn(gen, shape, dtype):
-    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
-
 def draw_batch(cfg, gen, batch: int, seq: int) -> dict:
     """A (batch, seq) prefill's inputs, named, shaped and typed as
     ``input_specs`` gives them, on the generator's device: float frames or
@@ -707,21 +575,6 @@ def draw_batch(cfg, gen, batch: int, seq: int) -> dict:
             out[name] = torch.randint(0, cfg.vocab, spec.shape, generator=gen, device=gen.device,
                                       dtype=spec.dtype)
     return out
-
-
-def close(out, ref, tol) -> float:
-    """Max abs error of ``out`` against ``ref``; raises unless it is finite,
-    within allclose at rtol = atol = ``tol[0]`` and within relative RMS error
-    ``tol[1]``."""
-    out, ref = out.float(), ref.float()
-    if not torch.isfinite(out).all():
-        raise AssertionError("kernel output has non-finite values")
-    err = (out - ref).abs().max().item()
-    rel = ((out - ref).norm() / ref.norm()).item()
-    if not torch.allclose(out, ref, rtol=tol[0], atol=tol[0]) or rel > tol[1]:
-        raise AssertionError(f"kernel disagrees with its plain version: max abs err "
-                             f"{err}, rel rms err {rel}, tol {tol}")
-    return err
 
 
 def logit_check(name: str, out, ref, bounds=(LOGIT_REL_RMS, LOGIT_MAX_ABS)) -> dict:
@@ -764,19 +617,6 @@ def moe_logit_check(name: str, out, ref, got: list, want: list, bounds: dict) ->
     if share > bounds["flip_share"]:
         raise AssertionError(f"{name}: {share} of the token-layers routed differently")
     return check
-
-
-def mamba2_dt_A(gen: torch.Generator, shape) -> tuple[torch.Tensor, torch.Tensor]:
-    """``dt_bias`` and ``A_log`` as Mamba-2 draws them (state-spaces/mamba,
-    mamba_ssm/modules/mamba2.py): dt log-uniform in [dt_min, dt_max] =
-    [1e-3, 1e-1], floored at 1e-4, ``dt_bias`` its inverse softplus; A
-    uniform in A_init_range = [1, 16]."""
-    dev = gen.device
-    u = torch.rand(shape, generator=gen, device=dev)
-    dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)).clamp_min(1e-4)
-    dt_bias = dt + torch.log(-torch.expm1(-dt))
-    A = torch.rand(shape, generator=gen, device=dev) * 15.0 + 1.0
-    return dt_bias, torch.log(A)
 
 
 def init_mamba2(model, gen: torch.Generator) -> dict:
@@ -882,10 +722,10 @@ def ptxas_report(log: str, smem: dict) -> list:
 
 def phase_resources() -> None:
     """``ptxas_report`` of every kernel library."""
-    fa_lib, ssd_lib = build.load("flash_attention"), build.load("ssd_scan")
-    fa_smem, ssd_smem = fa_lib.repro_flash_attention_smem_bytes, ssd_lib.repro_ssd_scan_smem_bytes
-    fa_smem.restype, ssd_smem.restype = ctypes.c_int, ctypes.c_int
-    fa_smem.argtypes, ssd_smem.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
+    fa_smem = build.bind("flash_attention", "repro_flash_attention_smem_bytes", ctypes.c_int,
+                         (ctypes.c_int,) * 2)
+    ssd_smem = build.bind("ssd_scan", "repro_ssd_scan_smem_bytes", ctypes.c_int,
+                          (ctypes.c_int,) * 3)
     smem = {}
     for D in fa.HEAD_DIMS:
         smem[f"flash_fwd_bf16<{D}>"] = fa_smem(1, D)
@@ -900,200 +740,108 @@ def phase_resources() -> None:
     emit("kernel resources", **out)
 
 
+def timed_row(fn, plain, args: tuple, tol, library, moved: float, *work) -> dict:
+    """One main path's row: ``fn`` held to ``plain`` on ``args`` within
+    ``tol`` (``card_cases.close``; None: bit for bit), over each output, its
+    device and call times beside ``plain``'s (and ``library``'s, where one
+    PyTorch call computes the same), and the bound of moving ``moved`` bytes
+    and doing ``work`` (see ``bound``)."""
+    got, want = fn(*args), plain(*args)
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    row = {"tol": tol or "bit for bit",
+           "max_abs_err": max(close(g, w, tol) for g, w in zip(got, want))}
+    del got, want
+    row.update(ms=time_ms(fn, args), call_ms=call_ms(fn, args),
+               plain_ms=time_ms(plain, args, iters=4),
+               library_ms=None if library is None else time_ms(library, args))
+    row["bound_ms"], row["bound_by"] = bound(moved, *work)
+    return row
+
+
 def phase_flash(gen) -> dict:
-    """Every FA_CASES row against the plain version, at the default softmax
-    scale and, where the row gives one, through ``ops.flash_attention`` at
-    that scale too; the rows of a main path's shape are timed at the path's
-    scale against the plain version and SDPA, and returned by name."""
+    """``timed_row`` of each FA_CASES row of a main path, at the path's
+    softmax scale, beside SDPA; returned by path."""
     rows = {}
-    for B, Hq, Hkv, Sq, Sk, D, dt, causal, name, scale in FA_CASES:
-        q = randn(gen, (B, Hq, Sq, D), dt)
-        k = randn(gen, (B, Hkv, Sk, D), dt)
-        v = randn(gen, (B, Hkv, Sk, D), dt)
-        out = fa.flash_attention(q, k, v, causal=causal)
-        ref = fa.flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = close(out, ref, FA_TOL[dt])
-        case = {"shape": [B, Hq, Hkv, Sq, Sk, D], "dtype": str(dt), "causal": causal,
-                "max_abs_err": err, "tol": FA_TOL[dt]}
-        if scale is not None:
-            del out, ref
-            out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
-            ref = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
-            torch.cuda.synchronize()
-            err = close(out, ref, FA_TOL[dt])
-            case.update(scale=scale, scaled_max_abs_err=err)
-        if name:  # a main path's shape: time it
-            pairs = sum(min(r + 1, Sk) for r in range(Sq)) if causal else Sq * Sk
-            args = (q, k, v)
-            row = {"shape": case["shape"], "max_abs_err": err}
-            row["ms"] = time_ms(lambda *a: fa.flash_attention(*a, causal=causal, scale=scale),
-                                args)
-            row["call_ms"] = call_ms(
-                lambda *a: fa.flash_attention(*a, causal=causal, scale=scale), args)
-            row["plain_ms"] = time_ms(lambda *a: fa.flash_attention_plain(
-                *a, causal=causal, scale=scale), args, iters=4)
-            row["library_ms"] = time_ms(lambda *a: F.scaled_dot_product_attention(
-                *a, is_causal=causal, enable_gqa=True, scale=scale), args)
-            row["bound_ms"], row["bound_by"] = bound(
-                nbytes(q, k, v, out), (4.0 * D * B * Hq * pairs, dt))
-            case.update(row, path=name)
-            rows[name] = row
-        emit("kernel flash_attention", **case)
+    for c in (c for c in FA_CASES if c.path):
+        q, k, v = fa_inputs(gen, c)
+        pairs = sum(min(r + 1, c.Sk) for r in range(c.Sq)) if c.causal else c.Sq * c.Sk
+        row = rows[c.path] = {"shape": [c.B, c.Hq, c.Hkv, c.Sq, c.Sk, c.D], **timed_row(
+            lambda *a: fa.flash_attention(*a, causal=c.causal, scale=c.scale),
+            lambda *a: fa.flash_attention_plain(*a, causal=c.causal, scale=c.scale),
+            (q, k, v), FA_TOL[c.dtype],
+            lambda *a: F.scaled_dot_product_attention(*a, is_causal=c.causal, enable_gqa=True,
+                                                      scale=c.scale),
+            nbytes(q, k, v, q), (4.0 * c.D * c.B * c.Hq * pairs, c.dtype))}
+        emit("kernel flash_attention", dtype=str(c.dtype), causal=c.causal, scale=c.scale,
+             path=c.path, **row)
     return rows
 
 
 def phase_rmsnorm(gen) -> dict:
-    row = None
-    for i, (rows, D, dt) in enumerate(RN_CASES):
-        x = randn(gen, (rows, D), dt)
-        s = randn(gen, (D,), dt)
-        out = rn.rmsnorm(x, s)
-        ref = rn.rmsnorm_plain(x, s)
-        torch.cuda.synchronize()
-        err = close(out, ref, RN_TOL[dt])
-        case = {"shape": [rows, D], "dtype": str(dt), "max_abs_err": err,
-                "tol": RN_TOL[dt]}
-        if i == 0:  # the main shape: time it against the plain and library calls
-            row = {"max_abs_err": err, "ms": time_ms(rn.rmsnorm, (x, s)),
-                   "call_ms": call_ms(rn.rmsnorm, (x, s)),
-                   "plain_ms": time_ms(rn.rmsnorm_plain, (x, s)),
-                   "library_ms": time_ms(lambda a, b: F.rms_norm(a, (D,), b, 1e-5), (x, s))}
-            row["bound_ms"], row["bound_by"] = bound(nbytes(x, s, out), (4.0 * x.numel(), dt))
-            case.update(row)
-        elif i == 1:
-            case["ms"] = time_ms(rn.rmsnorm, (x, s))
-        emit("kernel rmsnorm", **case)
-    return row
-
-
-def ssd_inputs(gen, B, S, H, P, N, dtype, kind: str) -> tuple:
-    """x, dt, A, Bm, Cm for one SSD_CASES row (see there for ``kind``)."""
-    x = randn(gen, (B, S, H, P), dtype)
-    Bm = randn(gen, (B, S, N), dtype)
-    Cm = randn(gen, (B, S, N), dtype)
-    if kind == "mamba2":
-        dt_bias, A_log = mamba2_dt_A(gen, (H,))
-        dt = F.softplus(randn(gen, (B, S, H), torch.float32) + dt_bias)
-        A = -torch.exp(A_log)
-    else:
-        dt = torch.rand((B, S, H), generator=gen, device="cuda") * 9e-3 + 1e-3
-        A = -torch.exp(randn(gen, (H,), torch.float32))
-    return x, dt, A, Bm, Cm
-
-
-def ssd_restarted(x, dt, A, Bm, Cm, *, chunk: int):
-    """The plain scan with every chunk started from a zero state: what a
-    kernel that dropped the carry between chunks would give."""
-    B, S, H, P = x.shape
-    q = ssd.chunk_len(S, chunk)
-    n = B * (S // q)
-    y = ssd.ssd_scan_plain(x.reshape(n, q, H, P), dt.reshape(n, q, H), A,
-                           Bm.reshape(n, q, -1), Cm.reshape(n, q, -1), chunk=q)
-    return y.reshape(B, S, H, P)
-
-
-def phase_ssd(gen) -> dict:
-    """Every case is compared before a failure raises, so that one run shows
-    which cases a faulty kernel fails; the rows of a main path's shape are
-    timed and returned by name."""
-    rows, failed = {}, []
-    for B, S, H, P, N, chunk, dt, kind, name in SSD_CASES:
-        args = ssd_inputs(gen, B, S, H, P, N, dt, kind)
-        out = ssd.ssd_scan(*args, chunk=chunk)
-        ref = ssd.ssd_scan_plain(*args, chunk=chunk)
-        torch.cuda.synchronize()
-        restarted = ssd_restarted(*args, chunk=chunk)
-        case = {"shape": [B, S, H, P, N], "chunk": chunk, "dtype": str(dt), "dt": kind,
-                "tol": SSD_TOL, "rel_rms_err": ((out - ref).norm() / ref.norm()).item(),
-                # how far the output is from one that drops the carry
-                "carry_rel_rms": ((restarted - ref).norm() / ref.norm()).item()}
-        try:
-            case["max_abs_err"] = close(out, ref, SSD_TOL)
-        except AssertionError as err:
-            case["error"] = str(err)
-            failed.append(case)
-        del out, ref, restarted
-        if name:  # a main path's shape: time it
-            q = ssd.chunk_len(S, chunk)
-            # The work the scan needs: C B^T on the causal pairs once per
-            # (b, chunk), since all heads share one B and C, in the type of
-            # B and C (bf16 x bf16 products are exact in f32); per (b, h,
-            # chunk), M x on the causal pairs, C state and the state update.
-            # For bf16 inputs the kernel runs each per-head product as two
-            # bf16 tensor-core passes (an f32 operand split into hi + lo
-            # against an exact bf16 one), so they count twice at the bf16
-            # peak; f32 inputs run them as f32 FMA.
-            cbt = B * (S // q) * q * (q + 1) * N
-            per_head = B * H * (S // q) * (q * (q + 1) * P + 4 * q * N * P)
-            per_head_work = ((2 * per_head, torch.bfloat16) if dt == torch.bfloat16
-                             else (per_head, torch.float32))
-            moved = nbytes(*args) + B * S * H * P * 4  # y is f32
-            row = {"max_abs_err": case.get("max_abs_err"),
-                   "ms": time_ms(lambda *a: ssd.ssd_scan(*a, chunk=chunk), args),
-                   "call_ms": call_ms(lambda *a: ssd.ssd_scan(*a, chunk=chunk), args),
-                   "plain_ms": time_ms(lambda *a: ssd.ssd_scan_plain(*a, chunk=chunk),
-                                       args, iters=4),
-                   "library_ms": None}  # no single PyTorch call computes the scan
-            row["bound_ms"], row["bound_by"] = bound(
-                moved, (cbt, args[3].dtype), per_head_work)
-            case.update(row, path=name)
-            rows[name] = row
-        emit("kernel ssd_scan", ok="error" not in case, **case)
-    if failed:
-        raise AssertionError(f"ssd_scan disagrees with its plain version in "
-                             f"{len(failed)} case(s): {failed}")
+    """``timed_row`` of each RN_CASES row of a main path, beside
+    ``F.rms_norm``; returned by path."""
+    rows = {}
+    for c in (c for c in RN_CASES if c.path):
+        x, s = rn_inputs(gen, c)
+        row = rows[c.path] = timed_row(
+            rn.rmsnorm, rn.rmsnorm_plain, (x, s), RN_TOL[c.dtype], lambda a, b: F.rms_norm(a, (c.D,), b, 1e-5),
+            nbytes(x, s, x), (4.0 * x.numel(), c.dtype))
+        emit("kernel rmsnorm", shape=[c.rows, c.D], dtype=str(c.dtype), path=c.path, **row)
     return rows
 
 
-def conv_args(gen, B, S, widths, K, dtype, bias: bool) -> tuple:
-    """The fused conv's inputs for one CONV_CASES row, flat: x, w (and b)
-    of each input, N(0, 1) in ``dtype``."""
-    out = []
-    for C in widths:
-        out += [randn(gen, (B, S, C), dtype), randn(gen, (K, C), dtype)]
-        if bias:
-            out.append(randn(gen, (C,), dtype))
-    return tuple(out)
+def phase_ssd(gen) -> dict:
+    """``timed_row`` of each SSD_CASES row of a main path; returned by path."""
+    rows = {}
+    for c in (c for c in SSD_CASES if c.path):
+        args = ssd_inputs(gen, c)
+        q = ssd.chunk_len(c.S, c.chunk)
+        # The work the scan needs: C B^T on the causal pairs once per
+        # (b, chunk), since all heads share one B and C, in the type of
+        # B and C (bf16 x bf16 products are exact in f32); per (b, h,
+        # chunk), M x on the causal pairs, C state and the state update.
+        # For bf16 inputs the kernel runs each per-head product as two
+        # bf16 tensor-core passes (an f32 operand split into hi + lo
+        # against an exact bf16 one), so they count twice at the bf16
+        # peak; f32 inputs run them as f32 FMA.
+        cbt = c.B * (c.S // q) * q * (q + 1) * c.N
+        per_head = c.B * c.H * (c.S // q) * (q * (q + 1) * c.P + 4 * q * c.N * c.P)
+        per_head_work = ((2 * per_head, torch.bfloat16) if c.dtype == torch.bfloat16
+                         else (per_head, torch.float32))
+        moved = nbytes(*args) + c.B * c.S * c.H * c.P * 4  # y is f32
+        row = rows[c.path] = timed_row(
+            lambda *a: ssd.ssd_scan(*a, chunk=c.chunk),
+            lambda *a: ssd.ssd_scan_plain(*a, chunk=c.chunk), args, SSD_TOL,
+            None,  # no single PyTorch call computes the scan
+            moved, (cbt, c.dtype), per_head_work)
+        emit("kernel ssd_scan", shape=[c.B, c.S, c.H, c.P, c.N], chunk=c.chunk,
+             dtype=str(c.dtype), dt=c.draw, path=c.path, **row)
+    return rows
 
 
 def phase_causal_conv(gen) -> dict:
-    """The Mamba-2 mixer's fused conv (x, B and C in one launch) against its
-    plain version, bit for bit, in every case; the rows of a main path's
-    shape timed beside their bound (bytes: every input, weight and bias read
-    once, every output written once) and the plain version's time."""
-    rows, failed = {}, []
-    for B, S, widths, K, dt, bias, name in CONV_CASES:
-        args = conv_args(gen, B, S, widths, K, dt, bias)
-        per = 3 if bias else 2
+    """``timed_row`` of each CONV_CASES row of a main path (x, B and C in one
+    launch), its bound the bytes (every input, weight and bias read once,
+    every output written once); returned by path."""
+    rows = {}
+    for c in (c for c in CONV_CASES if c.path):
+        convs = conv_inputs(gen, c)
+        args = tuple(t for conv in convs for t in conv if t is not None)
+        per = 3 if c.bias else 2
 
         def fn(*a, plain=False, per=per):
             convs = [(*a[i:i + 2], a[i + 2] if per == 3 else None)
                      for i in range(0, len(a), per)]
             return (cc.causal_conv_plain if plain else cc.causal_conv)(*convs)
 
-        got, want = fn(*args), fn(*args, plain=True)
-        torch.cuda.synchronize()
-        case = {"shape": [B, S, list(widths)], "taps": K, "bias": bias, "dtype": str(dt),
-                "equal": all(torch.equal(g, w) for g, w in zip(got, want)),
-                "max_abs_err": max((g.float() - w.float()).abs().max().item()
-                                   for g, w in zip(got, want))}
-        if not case["equal"]:
-            failed.append(case)
-        del got, want
-        if name:
-            moved = nbytes(*args) + sum(nbytes(x) for x in args[::per])  # + the outputs
-            row = {"max_abs_err": case["max_abs_err"], "ms": time_ms(fn, args),
-                   "call_ms": call_ms(fn, args),
-                   "plain_ms": time_ms(lambda *a: fn(*a, plain=True), args, iters=4),
-                   "library_ms": None}  # no single PyTorch call adds the bias and silu
-            row["bound_ms"], row["bound_by"] = bound(moved)
-            case.update(row, path=name)
-            rows[name] = row
-        emit("kernel causal_conv", ok=case["equal"], **case)
-    if failed:
-        raise AssertionError(f"causal_conv differs from its plain version in {len(failed)} "
-                             f"case(s): {failed}")
+        moved = nbytes(*args) + sum(nbytes(x) for x, _, _ in convs)  # + the outputs
+        row = rows[c.path] = timed_row(
+            fn, lambda *a: fn(*a, plain=True), args, None,
+            None,  # no single PyTorch call adds the bias and silu
+            moved)
+        emit("kernel causal_conv", shape=[c.B, c.S, list(c.widths)], taps=c.K, bias=c.bias,
+             dtype=str(c.dtype), path=c.path, **row)
     return rows
 
 
@@ -1172,28 +920,6 @@ def moe_plain(cfg, p, x):
     return y.to(x.dtype).reshape(B, S, D), dropped
 
 
-def dispatch_calls(cfg, ctx, p, x) -> tuple:
-    """``moe_fwd(impl="kernel")`` of one layer, and the arguments its calls
-    of the gather and the combine kernels took, by kernel name."""
-    seen = {}
-    calls = {name: getattr(mlp.ops, name) for name in ("moe_gather", "moe_combine")}
-
-    def recorder(name):
-        def rec(*args):
-            seen[name] = args
-            return calls[name](*args)
-        return rec
-
-    try:
-        for name in calls:
-            setattr(mlp.ops, name, recorder(name))
-        y = mlp.moe_fwd(cfg, ctx, p, x, impl="kernel")
-    finally:
-        for name, fn in calls.items():
-            setattr(mlp.ops, name, fn)
-    return y, seen
-
-
 def equal_plain(seen: dict) -> bool:
     """Each dispatch kernel, on the arguments in ``seen``, equals its plain
     version bit for bit."""
@@ -1202,28 +928,19 @@ def equal_plain(seen: dict) -> bool:
 
 
 def dispatch_kernel_rows(seen: dict) -> dict:
-    """Each dispatch kernel on the arguments in ``seen`` (held to its plain
-    version), timed beside its bound (bytes: every buffer row written once
-    and each kept pair's row read once by the gather; each kept pair's
-    expert row read once and y written once by the combine) and its plain
-    version."""
-    if not equal_plain(seen):
-        raise AssertionError("a dispatch kernel differs from its plain version")
+    """``timed_row`` of each dispatch kernel on the arguments in ``seen``
+    (bit for bit), its bound the bytes (every buffer row written once and each kept pair's row
+    read once by the gather; each kept pair's expert row read once and y
+    written once by the combine)."""
     xf, src = seen["moe_gather"]
     eout, slot, w, local = seen["moe_combine"]
     row = xf.shape[1] * xf.element_size()
     kept = int((src >= 0).sum())
-    moved = {"moe_gather": src.shape[0] * row + kept * row + nbytes(src),
-             "moe_combine": kept * row + w.shape[0] * row + nbytes(slot, w, local)}
-    out = {}
-    for name, plain in (("moe_gather", md.moe_gather_plain),
-                        ("moe_combine", md.moe_combine_plain)):
-        args, fn = seen[name], getattr(md, name)
-        r = {"ms": time_ms(fn, args), "call_ms": call_ms(fn, args),
-             "plain_ms": time_ms(plain, args, iters=4)}
-        r["bound_ms"], r["bound_by"] = bound(moved[name])
-        out[name] = r
-    return out
+    return {"moe_gather": timed_row(md.moe_gather, md.moe_gather_plain, seen["moe_gather"], None,
+                                    None, src.shape[0] * row + kept * row + nbytes(src)),
+            "moe_combine": timed_row(md.moe_combine, md.moe_combine_plain, seen["moe_combine"],
+                                     None, None,
+                                     kept * row + w.shape[0] * row + nbytes(slot, w, local))}
 
 
 def phase_moe_dispatch(cfg, params, gen, shape) -> dict:
@@ -1231,15 +948,16 @@ def phase_moe_dispatch(cfg, params, gen, shape) -> dict:
     card, at the prefill's token count, against ``moe_plain``: N(0, 1)
     inputs in the model's dtype, the layer's own weights.  Its kernel path
     is held to the reference's bit for bit and each of its two kernels to
-    its plain version; for granite_moe_3b the kernels are then timed on
-    the layer's calls at the benchmark's 16 x 2048 tokens."""
+    its plain version; at each DISPATCH_CASES row of this arch's main path,
+    the kernels are then timed on the layer's calls
+    (``dispatch_kernel_rows``)."""
     j = next(j for j in range(cfg.block_period) if cfg.is_moe_layer(j))
     p = {k: v[0] if torch.is_tensor(v) else {"w": v["w"][0]}
          for k, v in params["blocks"][j]["moe"].items() if k != "shared"}
     x = randn(gen, (*shape, cfg.d_model), params["embed"]["w"].dtype)
     ctx = ParallelCtx.single()
-    with mlp.record_routing() as routing:
-        out, seen = dispatch_calls(cfg, ctx, p, x)
+    with mlp.record_routing() as routing, recorded_dispatch() as seen:
+        out = mlp.moe_fwd(cfg, ctx, p, x, impl="kernel")
     same = torch.equal(out, mlp.moe_fwd(cfg, ctx, p, x))
     ref, dropped = moe_plain(cfg, p, x)
     torch.cuda.synchronize()
@@ -1254,15 +972,20 @@ def phase_moe_dispatch(cfg, params, gen, shape) -> dict:
         row[f"call_ms_{impl}"] = call_ms(
             lambda a, impl=impl: mlp.moe_fwd(cfg, ctx, p, a, impl=impl), (x,), iters=4)
     del seen
-    if cfg.name == "granite_moe_3b":  # the benchmark's layer: 40 experts, C = 8,192
-        xb = randn(gen, (16, 2048, cfg.d_model), x.dtype)
-        unpadded = dataclasses.replace(cfg, n_experts_padded=0)
-        p40 = {**p, "router": {"w": p["router"]["w"][:, :cfg.n_experts].contiguous()},
-               **{k: p[k][:cfg.n_experts] for k in ("wg", "wu", "wo")}}
-        row["kernels_at"] = {"tokens": [16, 2048], "experts": cfg.n_experts,
-                             "capacity": mlp.moe_capacity(unpadded, 16 * 2048)}
-        row["kernels"] = dispatch_kernel_rows(dispatch_calls(unpadded, ctx, p40, xb)[1])
-        del xb, p40
+    for c in (c for c in DISPATCH_CASES if c.path == cfg.name):
+        layer, lp = cfg, p
+        if not c.padded:  # the published experts, as the benchmark's layer
+            layer = dataclasses.replace(cfg, n_experts_padded=0)
+            lp = {**p, "router": {"w": p["router"]["w"][:, :cfg.n_experts].contiguous()},
+                  **{k: p[k][:cfg.n_experts] for k in ("wg", "wu", "wo")}}
+        T = c.tokens[0] * c.tokens[1]
+        row["kernels_at"] = {"tokens": list(c.tokens), "experts": layer.experts,
+                             "capacity": mlp.moe_capacity(layer, T)}
+        with recorded_dispatch() as seen:
+            mlp.moe_fwd(layer, ctx, lp, randn(gen, (*c.tokens, cfg.d_model), x.dtype),
+                        impl="kernel")
+        row["kernels"] = dispatch_kernel_rows(seen)
+        del seen, lp
     emit("moe dispatch", **row)
     if row["dropped_pairs"] != dropped:
         raise AssertionError(f"the dispatch dropped {row['dropped_pairs']} pairs, the "
@@ -2554,7 +2277,7 @@ def main() -> int:
             phase_device()
             phase_resources()
             fa_rows = phase_flash(gen)
-            rn_row = phase_rmsnorm(gen)
+            rn_row = phase_rmsnorm(gen)["qwen3_4b"]
             ssd_rows = phase_ssd(gen_ssm)
             conv_rows = phase_causal_conv(gen_ssm)
         finish_host_phases()

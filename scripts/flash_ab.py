@@ -7,8 +7,9 @@ Builds this tree's ``csrc/flash_attention.cu``, each ``--src`` (another
 the text OLD replaced by NEW; a NAME given again takes one more edit) with
 ``build.py``'s flags into a library of
 its own, all ``nvcc`` at once.  Then, for every main path's bf16 row of
-``chip_smoke.FA_CASES`` (head dims ``--dims``), it runs every library on the
-same inputs: each output is held to the plain version within ``FA_TOL`` and
+``tests/card_cases.py``'s ``FA_CASES`` (head dims ``--dims``), it runs every
+library on the same inputs, at the default softmax scale 1 / sqrt(D): each
+output is held to the plain version within ``FA_TOL`` and
 compared bit for bit with the first library's, and each library is timed
 with ``chip_smoke.time_ms`` (a CUDA graph of 20 calls on rotated input
 copies, replayed 5 times) in the order a b ... b a, so each reads twice.
@@ -22,18 +23,20 @@ and one JSON line per row.  Needs one H100.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import dataclasses
 import hashlib
 import json
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tests")]
+import card_cases  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -42,7 +45,7 @@ OUT = build.BUILD / "ab"
 
 
 def build_libs(sources: dict) -> dict:
-    """name -> (library, nvcc log) for each name -> source text."""
+    """name -> (library's path, nvcc log) for each name -> source text."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
@@ -57,24 +60,17 @@ def build_libs(sources: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log[-4000:]}")
-        out[name] = (ctypes.CDLL(str(lib)), log)
+        out[name] = (lib, log)
     return out
 
 
-def launcher(lib: ctypes.CDLL):
-    fn = lib.repro_flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def launcher(lib: Path):
+    """``fa.flash_attention`` with its kernel taken from the library ``lib``."""
+    kernel = dataclasses.replace(fa.KERNEL, lib=lib)
 
     def run(q, k, v, causal):
-        B, Hq, Sq, D = q.shape
-        out = torch.empty_like(q)
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B, Hq,
-                k.shape[1], Sq, k.shape[2], D, int(causal),
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
-        return out
+        with mock.patch.object(fa, "KERNEL", kernel):
+            return fa.flash_attention(q, k, v, causal=causal)
     return run
 
 
@@ -107,19 +103,18 @@ def main() -> int:
     order = list(runs) + list(runs)[::-1]
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     with torch.inference_mode():
-        # every build through `repro_flash_attention_fwd`, at the default scale
-        for B, Hq, Hkv, Sq, Sk, D, dt, causal, row, _scale in cs.FA_CASES:
-            if row is None or dt != torch.bfloat16 or D not in args.dims:
+        for c in card_cases.FA_CASES:
+            if c.path is None or c.dtype != torch.bfloat16 or c.D not in args.dims:
                 continue
-            q = cs.randn(gen, (B, Hq, Sq, D), dt)
-            k = cs.randn(gen, (B, Hkv, Sk, D), dt)
-            v = cs.randn(gen, (B, Hkv, Sk, D), dt)
+            B, Hq, Hkv, Sq, Sk, D, dt, causal, row, _ = c
+            q, k, v = card_cases.fa_inputs(gen, c)
             ref = fa.flash_attention_plain(q, k, v, causal=causal)
             outs = {name: run(q, k, v, causal) for name, run in runs.items()}
             torch.cuda.synchronize()
             first = outs[order[0]]
             res = {"row": row, "shape": [B, Hq, Hkv, Sq, Sk, D], "causal": causal,
-                   "max_abs_err": {n: cs.close(o, ref, cs.FA_TOL[dt]) for n, o in outs.items()},
+                   "max_abs_err": {n: card_cases.close(o, ref, card_cases.FA_TOL[dt])
+                                   for n, o in outs.items()},
                    "equal_to_first": {n: bool(torch.equal(o, first)) for n, o in outs.items()},
                    "ms": {n: [] for n in runs}}
             for i, name in enumerate(order):

@@ -1,13 +1,15 @@
 #!/usr/bin/env bash
-# Run chip_smoke.py in throwaway copies of the tree, each with one fault
+# Run the checks in throwaway copies of the tree, each with one fault
 # planted in a kernel source or in the TP program, and print each run's exit
-# code and the lines of the phase that should catch it.  A sound check fails
-# every copy.  Needs one H100, like chip_smoke.py.
+# code and the lines of the phase that should catch it: the card tests of
+# the kernels (python -m pytest -q -m card tests/test_torch_card_kernels.py)
+# for a fault in a kernel source, chip_smoke.py for any other.  A sound check
+# fails every copy.  Needs one H100, like chip_smoke.py.
 #
 #   bash scripts/planted_faults.sh [OUT_DIR [FAULT ...]]
 #                           # full logs: OUT_DIR/fault_*.txt; default: every fault
 #
-# Faults in csrc/flash_attention.cu (K1):
+# Faults in csrc/flash_attention.cu (K1), caught by the card tests:
 #   fa_diagonal_unmasked  the causal mask is not applied (only keys past Sk
 #                         are masked), so the diagonal tiles see future keys
 #   fa_last_kv_stale      the producer fills the last KV stage of each q-tile
@@ -23,7 +25,7 @@
 #                         one box, 64 columns: the second box reads zeros in
 #                         place of columns 64-79 of Q, K and V, and the
 #                         store leaves O's columns 64-79 unwritten
-# Faults in csrc/ssd_scan.cu (K3):
+# Faults in csrc/ssd_scan.cu (K3), caught by the card tests:
 #   ssd_carry_dropped     the incoming state's contribution to y (y_off) is
 #                         dropped after the first chunk
 #   ssd_state_not_decayed the carried state is not decayed by exp(cum_Q)
@@ -138,37 +140,37 @@ for name in $faults; do
   alone= file2=  # file2: a second edit, old2 -> new2, relative to the tree's root
   case $name in
     fa_diagonal_unmasked)
-      file=$csrc/flash_attention.cu phase=flash_attention
+      file=$csrc/flash_attention.cu phase=card
       old='if (kpos >= Sk || (causal && qpos[(i >> 1) & 1] < kpos)) s[i] = kNeg;'
       new='if (kpos >= Sk) s[i] = kNeg;' ;;
     fa_last_kv_stale)
-      file=$csrc/flash_attention.cu phase=flash_attention
+      file=$csrc/flash_attention.cu phase=card
       old='j * T::BK, bkv);
           mbar_wait(v_empty(s), parity);'
       new='(j - (j > 0 && j == n_kv - 1)) * T::BK, bkv);
           mbar_wait(v_empty(s), parity);' ;;
     fa_d256_last_q_box)
-      file=$csrc/flash_attention.cu phase=flash_attention
+      file=$csrc/flash_attention.cu phase=card
       old='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, b * T::BOX, q0, bh);'
       new='tma_load_3d(sq + b * T::Q_BOX, &qmap, q_full, (b - (D == 256 && b == T::NBOX - 1)) * T::BOX, q0, bh);' ;;
     fa_d256_second_consumer_rows)
-      file=$csrc/flash_attention.cu phase=flash_attention
+      file=$csrc/flash_attention.cu phase=card
       old='out + ((size_t)bh * Sq + qpos[h]) * D) + t;'
       new='out + ((size_t)bh * Sq + qpos[h] - 64 * w) * D) + t;' ;;
     fa_d80_box_extent)
-      file=$csrc/flash_attention.cu phase=flash_attention
+      file=$csrc/flash_attention.cu phase=card
       old='const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};'
       new='const cuuint64_t dims[3] = {(cuuint64_t)(D == 80 ? box_cols : D), (cuuint64_t)S, (cuuint64_t)BH};' ;;
     ssd_carry_dropped)
-      file=$csrc/ssd_scan.cu phase=ssd_scan
+      file=$csrc/ssd_scan.cu phase=card
       old='const float e = expf(cum[i]);'
       new='const float e = c == 0 ? expf(cum[i]) : 0.f;' ;;
     ssd_state_not_decayed)
-      file=$csrc/ssd_scan.cu phase=ssd_scan
+      file=$csrc/ssd_scan.cu phase=card
       old='st[nt][e] *= decay;'
       new='st[nt][e] *= 1.f;' ;;
     ssd_slice_offset)
-      file=$csrc/ssd_scan.cu phase=ssd_scan
+      file=$csrc/ssd_scan.cu phase=card
       old='const int p0 = blockIdx.x * PS,'
       new='const int p0 = 0 * blockIdx.x * PS,' ;;
     tp_attn_psum_dropped)
@@ -270,7 +272,15 @@ for name in $faults; do
   esac
   dir=$work/$name
   mkdir -p "$dir"
-  cp -r "$root/chip_smoke.py" "$root/src" "$dir/"
+  mkdir -p "$dir/tests"
+  cp -r "$root/src" "$dir/"
+  cp "$root/tests/card_cases.py" "$dir/tests/"  # the kernels' case tables
+  if [ "$phase" = card ]; then
+    cp "$root/conftest.py" "$root/pyproject.toml" "$dir/"
+    cp "$root/tests/test_torch_card_kernels.py" "$dir/tests/"
+  else
+    cp "$root/chip_smoke.py" "$dir/"
+  fi
   rm -rf "$dir/src/repro_torch/kernels/build"
   cu=$dir/src/repro_torch/$file
   edits="$cu|$root/src/repro_torch/$file"
@@ -292,11 +302,17 @@ PY
       exit 2
     fi
   done
-  (cd "$dir" && timeout 900 python3 chip_smoke.py) > "$out/fault_$name.txt" 2>&1
-  echo "$name: chip_smoke.py exit $?"
+  if [ "$phase" = card ]; then
+    (cd "$dir" && timeout 900 python3 -m pytest -q -m card tests/test_torch_card_kernels.py) \
+      > "$out/fault_$name.txt" 2>&1
+    echo "$name: card tests exit $?"
+  else
+    (cd "$dir" && timeout 900 python3 chip_smoke.py) > "$out/fault_$name.txt" 2>&1
+    echo "$name: chip_smoke.py exit $?"
+  fi
   diff "$root/src/repro_torch/$file" "$cu" | grep '^>'
   [ -n "$file2" ] && diff "$root/$file2" "$dir/$file2" | grep '^>'
-  grep -E "\"(kernel )?$phase\"" "$out/fault_$name.txt" | cut -c 1-600
+  grep -E "\"$phase\"|^FAILED|^[0-9]+ (passed|failed)" "$out/fault_$name.txt" | cut -c 1-600
   grep -a -o -m 1 -E "[A-Za-z]*Error: .{0,400}" "$out/fault_$name.txt"
   for a in $alone; do  # each phase that runs this program, on its own
     (cd "$dir" && timeout 600 python3 -c "

@@ -4,7 +4,8 @@
 Builds copies of ``csrc/ssd_scan.cu`` with one or more of the scan kernel's
 per-chunk products switched off (their loops skipped), times each copy and
 the intact kernel at the mamba2_130m prefill shape (4, 4096, 32, 64, N=128,
-chunk 128, bf16, Mamba-2's dt and A) with ``chip_smoke.time_ms``, and prints
+chunk 128, bf16, Mamba-2's dt and A: ``card_cases.ssd_inputs``) with
+``chip_smoke.time_ms``, and prints
 one JSON line.  A switched-off product's time is the intact kernel's minus
 that copy's; the copies compute wrong outputs and are only timed.
 
@@ -12,18 +13,21 @@ that copy's; the copies compute wrong outputs and are only timed.
 """
 from __future__ import annotations
 
-import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
+from unittest import mock
 
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))
+import card_cases  # noqa: E402
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
@@ -63,23 +67,14 @@ def build_variants(tmp: Path) -> dict[str, Path]:
 
 
 def launcher(lib_path: Path):
-    """The copy's scan, called as ``ssd.ssd_scan`` calls the intact one."""
-    lib = ctypes.CDLL(str(lib_path))
-    fn, ws_bytes = lib.repro_ssd_scan_fwd, lib.repro_ssd_scan_workspace_bytes
-    fn.restype, ws_bytes.restype = ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    ws_bytes.argtypes = [ctypes.c_int] * 4
+    """``ssd.ssd_scan`` with its scan kernel taken from the copy at
+    ``lib_path`` (the copies skip loops only: the intact library's
+    workspace size holds)."""
+    kernel = dataclasses.replace(ssd.KERNEL, lib=lib_path)
 
-    def run(x, dt, A, Bm, Cm):
-        B, S, H, P = x.shape
-        y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-        ws = torch.empty(ws_bytes(1, B, S, CHUNK), dtype=torch.uint8, device=x.device)
-        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                y.data_ptr(), ws.data_ptr(), 1, B, S, H, P, Bm.shape[-1], CHUNK,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
-        return y
+    def run(*args):
+        with mock.patch.object(ssd, "KERNEL", kernel):
+            return ssd.ssd_scan(*args, chunk=CHUNK)
     return run
 
 
@@ -88,7 +83,7 @@ def main() -> int:
         print("ssd_scan_breakdown: no CUDA device available", file=sys.stderr)
         return 1
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    args = chip_smoke.ssd_inputs(gen, *SHAPE, torch.bfloat16, "mamba2")
+    args = card_cases.ssd_inputs(gen, card_cases.SSD(*SHAPE, CHUNK, torch.bfloat16, "mamba2"))
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
         libs = build_variants(Path(tmp))
         ms = {"intact": chip_smoke.time_ms(lambda *a: ssd.ssd_scan(*a, chunk=CHUNK), args)}

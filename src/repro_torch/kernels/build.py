@@ -7,10 +7,16 @@ digest of its source and flags, so an edited source is rebuilt and an
 unchanged one is reused.  The missing libraries are built in parallel, one
 ``nvcc`` for each source, all started together.  A failed build raises.
 Nothing is built when the module is imported.
+
+Every wrapper launches its kernel through a ``Kernel`` (the library's
+entry with its argument types, bound on the first launch, run on a tensor's
+device with the current stream appended, a non-zero return raised); a C
+function that is no kernel entry is bound with ``bind``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -110,3 +116,36 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all()[name]
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+@functools.cache
+def bind(lib: str | Path, symbol: str, restype, argtypes: tuple):
+    """The C function ``symbol`` of ``lib`` (the name of a source in
+    ``csrc/``, or the path of a library built elsewhere), its ``restype``
+    and ``argtypes`` set; bound once per process."""
+    fn = getattr(load(lib) if isinstance(lib, str) else ctypes.CDLL(str(lib)), symbol)
+    fn.restype = restype
+    fn.argtypes = argtypes
+    return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """The kernel entry ``symbol`` of ``lib`` (as in ``bind``): a C function
+    that takes ``argtypes`` and then a CUDA stream and returns a CUDA error
+    code.  ``kernel(t, *args)`` launches it on ``t``'s device and current
+    stream and raises on an error; the library is loaded, and built if need
+    be, at the first launch."""
+    lib: str | Path
+    symbol: str
+    argtypes: tuple
+
+    @functools.cached_property
+    def fn(self):
+        return bind(self.lib, self.symbol, ctypes.c_int, (*self.argtypes, ctypes.c_void_p))
+
+    def __call__(self, t: torch.Tensor, *args) -> None:
+        with torch.cuda.device(t.device):
+            rc = self.fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} kernel launch failed: CUDA error {rc}")

@@ -82,19 +82,10 @@ def _check(convs) -> None:
                 raise ValueError("every input must be contiguous and 16-byte aligned")
 
 
-_FN = None
-
-
-def _entry():
-    """The library's C function."""
-    global _FN
-    if _FN is None:
-        fn = build.load("causal_conv").repro_causal_conv_silu
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2 + [
-            ctypes.c_int, ctypes.c_void_p]
-        _FN = fn
-    return _FN
+# (xs, ws, bs, outs, channels, n, dtype, B, S, K, stream)
+KERNEL = build.Kernel("causal_conv", "repro_causal_conv_silu",
+                      (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 2 + (ctypes.c_longlong,) * 2
+                      + (ctypes.c_int,))
 
 
 def causal_conv(*convs):
@@ -111,13 +102,7 @@ def causal_conv(*convs):
     outs = ptrs(*(y.data_ptr() for y in ys))
     channels = (ctypes.c_longlong * n)(*(x.shape[2] for x, _, _ in convs))
     B, S, _ = x0.shape
-    fn = _entry()
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = fn(xs, ws, bs, outs, channels, n, _DTYPES[x0.dtype], B, S,
-                convs[0][1].shape[0], stream)
-    if rc != 0:
-        raise RuntimeError(f"causal_conv kernel launch failed: CUDA error {rc}")
+    KERNEL(x0, xs, ws, bs, outs, channels, n, _DTYPES[x0.dtype], B, S, convs[0][1].shape[0])
     causal_conv.launches += 1
     return ys
 

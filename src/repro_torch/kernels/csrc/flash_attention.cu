@@ -1011,12 +1011,3 @@ extern "C" int repro_flash_attention_fwd_scaled(const void* q, const void* k, co
   }
   return cudaErrorInvalidValue;
 }
-
-// The entry at the scale 1 / sqrt(D).
-extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                         void* o, int dtype, int B, int Hq, int Hkv,
-                                         int Sq, int Sk, int D, int causal,
-                                         void* stream) {
-  return repro_flash_attention_fwd_scaled(q, k, v, o, dtype, B, Hq, Hkv, Sq, Sk, D, causal,
-                                          1.0 / sqrt((double)D), stream);
-}

@@ -78,34 +78,19 @@ def _check(q, k, v):
         raise ValueError("B and Hq must be at most 65535")
 
 
-_FN = None
-
-
-def _entry():
-    global _FN
-    if _FN is None:
-        fn = build.load("flash_attention").repro_flash_attention_fwd_scaled
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_double, ctypes.c_void_p])
-        _FN = fn
-    return _FN
+# (q, k, v, o, dtype, B, Hq, Hkv, Sq, Sk, D, causal, scale, stream)
+KERNEL = build.Kernel("flash_attention", "repro_flash_attention_fwd_scaled",
+                      (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (ctypes.c_double,))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     """Launch the CUDA kernel on q's device and current stream."""
     _check(q, k, v)
-    fn = _entry()
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, D, int(causal),
-                softmax_scale(D, scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    KERNEL(q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], B,
+           Hq, Hkv, Sq, Sk, D, int(causal), softmax_scale(D, scale))
     flash_attention.launches += 1
     return out
 

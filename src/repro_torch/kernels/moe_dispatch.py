@@ -70,24 +70,12 @@ def _check(name, t, dim, dtype=None):
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-_FNS = None
-
-
-def _entry():
-    """(gather, combine): the library's two C functions."""
-    global _FNS
-    if _FNS is None:
-        lib = build.load("moe_dispatch")
-        gather = lib.repro_moe_gather
-        gather.restype = ctypes.c_int
-        gather.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-                           + [ctypes.c_int, ctypes.c_void_p])
-        combine = lib.repro_moe_combine
-        combine.restype = ctypes.c_int
-        combine.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        _FNS = gather, combine
-    return _FNS
+# (xf, src, out, rows, T, row_bytes, vec, stream)
+GATHER = build.Kernel("moe_dispatch", "repro_moe_gather",
+                      (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 3 + (ctypes.c_int,))
+# (eout, slot, w, local, y, dtype, T, rows, K, D, vec, stream)
+COMBINE = build.Kernel("moe_dispatch", "repro_moe_combine", (ctypes.c_void_p,) * 5
+                       + (ctypes.c_int,) + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 3)
 
 
 def moe_gather(xf, src):
@@ -101,13 +89,7 @@ def moe_gather(xf, src):
     out = torch.empty((src.shape[0], D), dtype=xf.dtype, device=xf.device)
     row_bytes = D * xf.element_size()
     vec = _vec_bytes(row_bytes, xf, out)
-    gather, _ = _entry()
-    with torch.cuda.device(xf.device):
-        stream = torch.cuda.current_stream(xf.device).cuda_stream
-        rc = gather(xf.data_ptr(), src.data_ptr(), out.data_ptr(), src.shape[0], T,
-                    row_bytes, vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"moe_gather kernel launch failed: CUDA error {rc}")
+    GATHER(xf, xf.data_ptr(), src.data_ptr(), out.data_ptr(), src.shape[0], T, row_bytes, vec)
     moe_gather.launches += 1
     return out
 
@@ -134,13 +116,8 @@ def moe_combine(eout, slot, w, local):
     rows, D = eout.shape
     y = torch.empty((T, D), dtype=eout.dtype, device=eout.device)
     vec = _vec_bytes(D * eout.element_size(), eout, y)
-    _, combine = _entry()
-    with torch.cuda.device(eout.device):
-        stream = torch.cuda.current_stream(eout.device).cuda_stream
-        rc = combine(eout.data_ptr(), slot.data_ptr(), w.data_ptr(), local.data_ptr(),
-                     y.data_ptr(), _DTYPES[eout.dtype], T, rows, K, D, vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"moe_combine kernel launch failed: CUDA error {rc}")
+    COMBINE(eout, eout.data_ptr(), slot.data_ptr(), w.data_ptr(), local.data_ptr(),
+            y.data_ptr(), _DTYPES[eout.dtype], T, rows, K, D, vec)
     moe_combine.launches += 1
     return y
 

@@ -95,39 +95,23 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> int:
     return q
 
 
-_FNS = None
-
-
-def _entry():
-    """(scan, workspace_bytes): the library's two C functions."""
-    global _FNS
-    if _FNS is None:
-        lib = build.load("ssd_scan")
-        fn = lib.repro_ssd_scan_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        ws = lib.repro_ssd_scan_workspace_bytes
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int] * 4
-        _FNS = fn, ws
-    return _FNS
+# (x, dt, A, Bm, Cm, y, workspace, dtype, B, S, H, P, N, chunk, stream)
+KERNEL = build.Kernel("ssd_scan", "repro_ssd_scan_fwd",
+                      (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """Launch the CUDA kernel on x's device and current stream."""
     q = _check(x, dt, A, Bm, Cm, chunk)
-    fn, ws_bytes = _entry()
     Bsz, S, H, P = x.shape
     dtype = _DTYPES[x.dtype]
+    # repro_ssd_scan_workspace_bytes(dtype, B, S, chunk)
+    ws_bytes = build.bind("ssd_scan", "repro_ssd_scan_workspace_bytes", ctypes.c_longlong,
+                          (ctypes.c_int,) * 4)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     ws = torch.empty(ws_bytes(dtype, Bsz, S, q), dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                y.data_ptr(), ws.data_ptr() or None, dtype, Bsz, S, H, P, Bm.shape[-1], q,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+    KERNEL(x, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+           y.data_ptr(), ws.data_ptr() or None, dtype, Bsz, S, H, P, Bm.shape[-1], q)
     ssd_scan.launches += 1
     return y
 

@@ -6,18 +6,18 @@ On the CPU the wrappers take the plain versions: ``moe_fwd(impl="kernel")``
 equals ``impl="reference"`` bit for bit (capacity that drops pairs, an
 expert-parallel rank whose remote pairs go to the overflow slot, f32 and
 bf16), the plain gather and combine equal the reference's expressions, and
-the wrappers refuse autograd-tracked inputs.  The tests marked ``card`` run
-the kernels on a capability-(9, 0) device against the plain versions, bit
-for bit, at granite_moe_3b's prefill layer (32,768 x 1536, 40 experts, C =
-8,192), a D = 4096 mixtral_8x7b layer, a ragged token count and an EP rank,
-then a whole granite_moe_3b forward against the same model with the
-reference's dispatch; elsewhere they skip."""
+the wrappers refuse autograd-tracked inputs.  The test marked ``card`` runs
+a whole granite_moe_3b forward on a capability-(9, 0) device against the
+same model with the reference's dispatch; elsewhere it skips.  The kernels
+against their plain versions on the card: ``test_torch_card_kernels.py``.
+The layers are drawn by ``card_cases.py``."""
 import dataclasses
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from card_cases import dispatch_layer, ep_rank  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import moe_dispatch, ops  # noqa: E402
 from repro_torch.models import Model, mlp  # noqa: E402
@@ -31,44 +31,13 @@ CASES = [("granite_moe_3b", 1.25, None), ("granite_moe_3b", 0.3, None),
          ("moonshot_v1_16b", 0.3, None)]
 
 
-def _ep_rank(monkeypatch, p, ep, device="cpu"):
-    """(context, parameters) of one expert-parallel rank, alone: its slice
-    of the expert stacks, and its combine's partial sum left unreduced
-    (``psum_ep`` the identity), as a rank's is before the all_reduce."""
-    if ep is None:
-        return ParallelCtx.single(), p
-    rank, size = ep
-    monkeypatch.setattr(ParallelCtx, "psum_ep", lambda self, x: x)
-    n = p["wg"].shape[0] // size
-    mine = {k: v[rank * n:(rank + 1) * n] for k, v in p.items() if k in ("wg", "wu", "wo")}
-    return (ParallelCtx(ep_axis="model", ep_size=size,
-                        rank=torch.tensor(rank, dtype=torch.int64, device=device)),
-            {**p, **mine})
-
-
-def _layer(arch, dtype, cf, *, device="cpu", tokens=(2, 16), seed=0, smoke=True,
-           padded=True, skew=0.0):
-    """One MoE layer's config, parameters and input; ``padded=False`` sets
-    the zoo's padded experts back to the published count (granite: 40).
-    ``skew`` adds one N(0, skew^2) vector to every token: the router then
-    favours some experts over all tokens, so capacity drops pairs, as in a
-    model whose tokens route alike (independent N(0, 1) tokens load 40
-    experts so evenly that capacity 1.25 drops none at 32,768 tokens)."""
-    cfg = dataclasses.replace(get_config(arch, smoke=smoke), capacity_factor=cf)
-    if not padded:
-        cfg = dataclasses.replace(cfg, n_experts_padded=0)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    p = mlp.moe_init(gen, cfg, dtype=dtype)
-    x = torch.randn((*tokens, cfg.d_model), generator=gen, device=device)
-    x = x + skew * torch.randn((cfg.d_model,), generator=gen, device=device)
-    return cfg, p, x.to(dtype)
-
-
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("arch,cf,ep", CASES, ids=lambda c: str(c))
 def test_kernel_dispatch_equals_reference(arch, cf, ep, dtype, monkeypatch):
-    cfg, p, x = _layer(arch, DTYPES[dtype], cf)
-    ctx, p = _ep_rank(monkeypatch, p, ep)
+    cfg, p, x = dispatch_layer(arch, DTYPES[dtype], cf)
+    ctx, p = ep_rank(p, ep)
+    # a rank's combine alone: its partial sum before the all_reduce
+    monkeypatch.setattr(ParallelCtx, "psum_ep", lambda self, x: x)
     with mlp.record_routing() as routing:
         want = mlp.moe_fwd(cfg, ctx, p, x)
     got = mlp.moe_fwd(cfg, ctx, p, x, impl="kernel")
@@ -189,54 +158,6 @@ def hopper():
     if not torch.cuda.is_available() or torch.cuda.get_device_capability() != (9, 0):
         pytest.skip("needs a CUDA device of compute capability (9, 0)")
     return torch.device("cuda")
-
-
-def _recorded(monkeypatch):
-    """Record the arguments of each ``ops.moe_gather`` and ``ops.moe_combine``
-    call, passed on unchanged."""
-    seen = {}
-    for name in ("moe_gather", "moe_combine"):
-        fn = getattr(ops, name)
-
-        def rec(*args, _fn=fn, _name=name):
-            seen[_name] = args
-            return _fn(*args)
-        monkeypatch.setattr(ops, name, rec)
-    return seen
-
-
-# (arch, tokens (B, S), EP (rank, size) or None, the zoo's padded experts):
-# granite's prefill layer as the benchmark runs it (40 experts, C = 8,192), a
-# D = 4096 layer, a token count no block divides, an EP rank
-CARD_CASES = [("granite_moe_3b", (16, 2048), None, False),
-              ("mixtral_8x7b", (2, 1024), None, True),
-              ("granite_moe_3b", (1, 1001), None, True),
-              ("granite_moe_3b", (2, 1024), (2, 4), True)]
-
-
-@pytest.mark.card
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("arch,tokens,ep,padded", CARD_CASES, ids=lambda c: str(c))
-def test_card_kernels_equal_plain(hopper, arch, tokens, ep, padded, dtype, monkeypatch):
-    cfg, p, x = _layer(arch, DTYPES[dtype], get_config(arch).capacity_factor,
-                       device=hopper, tokens=tokens, smoke=False, padded=padded, skew=0.5)
-    ctx, p = _ep_rank(monkeypatch, p, ep, hopper)
-    want = mlp.moe_fwd(cfg, ctx, p, x)
-    seen = _recorded(monkeypatch)
-    n = moe_dispatch.moe_gather.launches, moe_dispatch.moe_combine.launches
-    got = mlp.moe_fwd(cfg, ctx, p, x, impl="kernel")
-    torch.cuda.synchronize()
-    assert (moe_dispatch.moe_gather.launches - n[0],
-            moe_dispatch.moe_combine.launches - n[1]) == (1, 1)
-    assert torch.equal(got, want)
-    xf, src = seen["moe_gather"]
-    assert torch.equal(moe_dispatch.moe_gather(xf, src),
-                       moe_dispatch.moe_gather_plain(xf, src))
-    eout, slot, w, local = seen["moe_combine"]
-    assert torch.equal(moe_dispatch.moe_combine(eout, slot, w, local),
-                       moe_dispatch.moe_combine_plain(eout, slot, w, local))
-    # kept rows, empty rows and dropped (or remote) pairs
-    assert (src < 0).any() and (src >= 0).any() and not local.all()
 
 
 @pytest.mark.card
