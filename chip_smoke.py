@@ -9,8 +9,8 @@ Run from the repository root on a machine with one H100:
 Phases, one JSON line each: device (name, capability, power limit, kernel
 builds), kernel resources (each kernel's registers, stack and spills from
 the ``nvcc -Xptxas -v`` log, and its dynamic shared memory), kernel
-flash_attention, kernel rmsnorm, kernel ssd_scan and kernel causal_conv
-(each kernel at the main paths' shapes of its table in
+flash_attention, kernel rmsnorm, kernel ssd_scan, kernel causal_conv and
+kernel skip_gated_norm (each kernel at the main paths' shapes of its table in
 ``tests/card_cases.py``, held to its plain version with the table's
 tolerance and timed beside it and its bound; every row of those tables,
 edge cases included, is checked by the card tests,
@@ -137,8 +137,9 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
 from card_cases import (CONV_CASES, DISPATCH_CASES, FA_CASES, FA_TOL, RN_CASES,  # noqa: E402
-                        RN_TOL, SSD_CASES, SSD_TOL, close, conv_inputs, fa_inputs, mamba2_dt_A, randn,
-                        recorded_dispatch, rn_inputs, ssd_inputs)
+                        RN_TOL, SGN_CASES, SGN_EPS, SGN_TOL, SSD_CASES, SSD_TOL, close,
+                        conv_inputs, fa_inputs, mamba2_dt_A, randn, recorded_dispatch, rn_inputs,
+                        sgn_check, sgn_inputs, ssd_inputs)
 from repro_torch.configs import ShapeSpec, get_config, input_specs  # noqa: E402
 from repro_torch.configs.base import SHAPES, ShapeDtype  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
@@ -147,6 +148,7 @@ from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import skip_gated_norm as sgn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import analysis  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -155,7 +157,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.dryrun import _zero_flags_from_specs  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.models import mlp  # noqa: E402
+from repro_torch.models import mlp, ssm  # noqa: E402
 from repro_torch.parallel import spmd  # noqa: E402
 from repro_torch.parallel.ctx import ParallelCtx  # noqa: E402
 from repro_torch.parallel.sharding import cache_specs, param_specs, shard_params  # noqa: E402
@@ -637,20 +639,23 @@ def counts() -> dict:
     return {"flash_attention": fa.flash_attention.launches,
             "rmsnorm": rn.rmsnorm.launches, "ssd_scan": ssd.ssd_scan.launches,
             "causal_conv": cc.causal_conv.launches,
-            "moe_gather": md.moe_gather.launches, "moe_combine": md.moe_combine.launches}
+            "moe_gather": md.moe_gather.launches, "moe_combine": md.moe_combine.launches,
+            "skip_gated_norm": sgn.skip_gated_norm.launches}
 
 
 def reset_counts() -> None:
     fa.flash_attention.launches = rn.rmsnorm.launches = ssd.ssd_scan.launches = 0
     cc.causal_conv.launches = md.moe_gather.launches = md.moe_combine.launches = 0
+    sgn.skip_gated_norm.launches = 0
 
 
 def want_counts(flash: int = 0, ssd_scans: int = 0, moe: int = 0) -> dict:
     """``counts()`` as a forward of ``flash`` attention layers, ``ssd_scans``
-    SSD layers (a scan and a fused conv each) and ``moe`` MoE layers on the
-    kernel path launches them."""
+    SSD layers (a scan, a fused conv and a skip and gated norm each) and
+    ``moe`` MoE layers on the kernel path launches them."""
     return {"flash_attention": flash, "rmsnorm": 0, "ssd_scan": ssd_scans,
-            "causal_conv": ssd_scans, "moe_gather": moe, "moe_combine": moe}
+            "causal_conv": ssd_scans, "moe_gather": moe, "moe_combine": moe,
+            "skip_gated_norm": ssd_scans}
 
 
 def moe_layers(cfg, layers: int) -> int:
@@ -841,6 +846,30 @@ def phase_causal_conv(gen) -> dict:
             None,  # no single PyTorch call adds the bias and silu
             moved)
         emit("kernel causal_conv", shape=[c.B, c.S, list(c.widths)], taps=c.K, bias=c.bias,
+             dtype=str(c.dtype), path=c.path, **row)
+    return rows
+
+
+def phase_skip_gated_norm(gen) -> dict:
+    """``timed_row`` of each SGN_CASES row of a main path, held first as the
+    card test holds it (``sgn_check``), its bound the bytes (y, x, z, D and
+    the scale read once, the output written once); returned by path."""
+    rows = {}
+    for c in (c for c in SGN_CASES if c.path):
+        args = sgn_inputs(gen, c)
+        got, rstd = sgn.skip_gated_norm(*args, eps=SGN_EPS, group=c.group, rstd=True)
+        sgn_check(args, got, rstd, eps=SGN_EPS, group=c.group, tol=SGN_TOL[c.dtype])
+        del got, rstd
+
+        def fn(*a, plain=False, group=c.group):
+            return (ssm.skip_gated_norm_plain if plain else sgn.skip_gated_norm)(
+                *a, eps=SGN_EPS, group=group)
+
+        row = rows[c.path] = timed_row(
+            fn, lambda *a: fn(*a, plain=True), args, SGN_TOL[c.dtype],
+            None,  # no single PyTorch call computes the skip and the gated norm
+            nbytes(*args, args[3]))  # + the output, z's shape and dtype
+        emit("kernel skip_gated_norm", shape=[c.B, c.S, c.H, c.P], group=c.group,
              dtype=str(c.dtype), path=c.path, **row)
     return rows
 
@@ -2280,6 +2309,7 @@ def main() -> int:
             rn_row = phase_rmsnorm(gen)["qwen3_4b"]
             ssd_rows = phase_ssd(gen_ssm)
             conv_rows = phase_causal_conv(gen_ssm)
+            sgn_rows = phase_skip_gated_norm(gen_ssm)
         finish_host_phases()
     # training runs with grad enabled, outside inference_mode
     train_launches = phase_train()
@@ -2419,6 +2449,11 @@ def main() -> int:
          "replaces": "none (the JAX package leaves the conv to XLA)",
          "launches": ssm_launches["causal_conv"], **conv_rows["mamba2_130m"],
          **{f"{name}_shape": row for name, row in conv_rows.items() if name != "mamba2_130m"}},
+        {"name": "skip_gated_norm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/skip_gated_norm.cu",
+         "replaces": "none (the JAX package leaves the skip and the gated norm to XLA)",
+         "launches": ssm_launches["skip_gated_norm"], **sgn_rows["mamba2_130m"],
+         **{f"{name}_shape": row for name, row in sgn_rows.items() if name != "mamba2_130m"}},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2427,7 +2462,8 @@ def main() -> int:
                                    else n[row["name"]] for path, n in paths.items()}
     extra = ("launches_by_path", *(f"{name}_shape" for name in fa_rows if name != "qwen3_4b"),
              *(f"{name}_shape" for name in ssd_rows if name != "mamba2_130m"),
-             *(f"{name}_shape" for name in conv_rows if name != "mamba2_130m"))
+             *(f"{name}_shape" for name in conv_rows if name != "mamba2_130m"),
+             *(f"{name}_shape" for name in sgn_rows if name != "mamba2_130m"))
     emit("run", seconds=time.perf_counter() - t_run, card=card)
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in kernels]}))

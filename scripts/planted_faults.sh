@@ -31,6 +31,15 @@
 #   ssd_state_not_decayed the carried state is not decayed by exp(cum_Q)
 #   ssd_slice_offset      every P-slice block reads and writes the first
 #                         slice's columns
+# Faults in csrc/skip_gated_norm.cu (the Mamba-2 mixer's skip and gated
+# norm), caught by the card tests:
+#   sgn_skip_dropped      the D * x term is left out of the skip
+#   sgn_group_offset      each unit reads the next group's sum of squares
+#                         (a row of one group reads its own)
+#   sgn_fma_contracted    the skip is one fmaf(D, x, y), not a rounded
+#                         product and a rounded sum; caught where the rows
+#                         hold the kernel bit for bit to the plain arithmetic
+#                         given its own rstd
 # Faults in the TP program (caught by the verify phase, and the tp_forward
 # phase, run on its own after chip_smoke.py, fails its logit check):
 #   tp_attn_psum_dropped  the psum after attention's output projection is
@@ -125,7 +134,8 @@ out=${1:-$root/chiprun_out}
 shift $(( $# > 0 ? 1 : 0 ))
 faults=${*:-fa_diagonal_unmasked fa_last_kv_stale fa_d256_last_q_box \
 fa_d256_second_consumer_rows fa_d80_box_extent \
-ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset tp_attn_psum_dropped \
+ssd_carry_dropped ssd_state_not_decayed ssd_slice_offset sgn_skip_dropped sgn_group_offset \
+sgn_fma_contracted tp_attn_psum_dropped \
 tp_vp_embed_shifted decode_cache_head_offset sp_gather_wrong_dim dp_rank_rows_swapped \
 sp_frontend_prev_chunk moe_shared_psum_dropped moe_dispatch_pos_off_by_one \
 pipeline_ring_stalled tpdp_psum_on_data_group train_kernel_path_unguarded \
@@ -173,6 +183,18 @@ for name in $faults; do
       file=$csrc/ssd_scan.cu phase=card
       old='const int p0 = blockIdx.x * PS,'
       new='const int p0 = 0 * blockIdx.x * PS,' ;;
+    sgn_skip_dropped)
+      file=$csrc/skip_gated_norm.cu phase=card
+      old='return __fadd_rn(y, __fmul_rn(d, x));'
+      new='return __fadd_rn(y, 0.f);' ;;
+    sgn_group_offset)
+      file=$csrc/skip_gated_norm.cu phase=card
+      old='const float sum = gsum[gi];'
+      new='const float sum = gsum[(gi + 1) % (units / ug)];' ;;
+    sgn_fma_contracted)
+      file=$csrc/skip_gated_norm.cu phase=card
+      old='return __fadd_rn(y, __fmul_rn(d, x));'
+      new='return fmaf(d, x, y);' ;;
     tp_attn_psum_dropped)
       file=models/attention.py phase=verify alone=tp_forward
       old='y = linear(p["wo"], out)

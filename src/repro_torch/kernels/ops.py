@@ -2,7 +2,10 @@
 
 A tensor on the CPU takes the kernel's plain PyTorch version.  A CUDA tensor
 on a capability-(9, 0) device launches the kernel; on any other device the
-kernel's wrapper raises.  A failed build or launch raises; nothing falls
+kernel's wrapper raises.  ``skip_gated_norm`` alone launches only: its plain
+version is the Mamba-2 mixer's own lines (``models/ssm.py``
+``skip_gated_norm_plain``), which ``ssm_fwd`` runs on the CPU itself, as
+this layer imports nothing from ``models/``.  A failed build or launch raises; nothing falls
 back.
 
 The kernels have no backward, as the Pallas kernels they port have none: a
@@ -21,6 +24,7 @@ from . import causal_conv as _cc
 from . import flash_attention as _fa
 from . import moe_dispatch as _moe
 from . import rmsnorm as _rn
+from . import skip_gated_norm as _sgn
 from . import ssd_scan as _ssd
 
 
@@ -81,3 +85,12 @@ def causal_conv(*convs):
     if convs[0][0].device.type == "cpu":
         return _cc.causal_conv_plain(*convs)
     return _cc.causal_conv(*convs)
+
+
+def skip_gated_norm(y, x, D, z, s, *, eps: float, group: int):
+    """y: (B, S, H, P) f32, K3's output; x: (B, S, H, P); D: (H,) f32; z: (B,
+    S, H * P); s: (H * P,) -> the gated norm of ``(y + D * x).to(x.dtype)``
+    over groups of ``group`` channels, (B, S, H * P) in x's dtype; on the
+    card only (the plain version: ``models/ssm.py`` ``skip_gated_norm_plain``)."""
+    _refuse_autograd("skip_gated_norm", y, x, D, z, s)
+    return _sgn.skip_gated_norm(y, x, D, z, s, eps=eps, group=group)

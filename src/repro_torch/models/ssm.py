@@ -8,8 +8,9 @@ semantic reference, the chunked SSD algorithm in plain torch:
   across chunks: S_c   <- S_{c-1} · Π decay + S_c      (short loop over chunks)
   offset:        Y_off  = decay_from_start · C S_{c-1}
 
-``ssm_fwd(impl="kernel")`` runs the SSD scan kernel instead, and the three
-causal convs with their biases and silu as one kernel
+``ssm_fwd(impl="kernel")`` runs the SSD scan kernel instead, the three
+causal convs with their biases and silu as one kernel, and the D skip, the
+cast and the gated norm after the scan as another
 (``repro_torch.kernels.ops``).  Decode keeps O(1) state per head and
 bypasses the kernel, as in the JAX package.
 
@@ -17,7 +18,8 @@ Two options of the port's own (the JAX package has neither): a bias on each
 causal conv (``cfg.ssm_conv_bias``, the ``conv_bias`` leaves) and the gated
 norm's group (``cfg.ssm_norm_group``; 0 keeps one group per SSD head).
 Inside ``scope.spans()`` the full-sequence block opens ``ssm.proj``,
-``ssm.conv``, ``ssm.scan``, ``ssm.norm`` and ``ssm.out``.
+``ssm.conv``, ``ssm.scan``, ``ssm.norm`` (the D skip, the cast and the
+gated norm) and ``ssm.out``.
 """
 from __future__ import annotations
 
@@ -150,6 +152,17 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None, return_state: boo
         return y
 
 
+def skip_gated_norm_plain(y, xh, D, z, s, *, eps: float, group: int):
+    """The mixer after the scan: the D skip over the scan's f32 y (B, S, H,
+    P), the cast to xh's dtype, then the gated norm by silu(z) (B, S, H * P)
+    over groups of ``group`` channels, times the scale s (H * P,).  The plain
+    version of ``kernels/csrc/skip_gated_norm.cu``, which ``ssm_fwd`` runs
+    on the reference path and on the CPU."""
+    B, S, H, P = y.shape
+    y = (y + D[..., None] * xh.float()).reshape(B, S, H * P).to(xh.dtype)
+    return gated_rmsnorm({"s": s}, y, z, eps, group=group)
+
+
 def ssm_fwd(cfg, ctx: ParallelCtx, p, x, *, impl: str = "reference",
             unroll: bool = False):
     """Full-sequence SSD block.  x: (B, S, D) replicated."""
@@ -181,11 +194,13 @@ def ssm_fwd(cfg, ctx: ParallelCtx, p, x, *, impl: str = "reference",
                               Bm.contiguous(), Cm.contiguous(), chunk=cfg.ssm_chunk)
         else:
             y = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, unroll=unroll)
-        y = y + p["Dskip"][..., :H_loc][..., None] * xh.float()
-        y = y.reshape(B, S, H_loc * P).to(x.dtype)
     with span("ssm.norm"):
-        y = gated_rmsnorm(p["out_norm"], y, z, cfg.norm_eps,
-                          group=_norm_group(cfg, H_loc * P))
+        args = (y, xh, p["Dskip"][..., :H_loc], z, p["out_norm"]["s"])
+        kw = {"eps": cfg.norm_eps, "group": _norm_group(cfg, H_loc * P)}
+        if impl == "kernel" and y.device.type != "cpu":
+            y = kops.skip_gated_norm(*args, **kw)
+        else:
+            y = skip_gated_norm_plain(*args, **kw)
     with span("ssm.out"):
         out = linear(p["wo"], y)  # row-parallel
     return ctx.sp_enter(out)

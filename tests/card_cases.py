@@ -17,8 +17,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import skip_gated_norm as sgn
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.models import mlp
+from repro_torch.models import mlp, ssm
 from repro_torch.parallel.ctx import ParallelCtx
 
 # Flash attention, (allclose rtol = atol, relative RMS error).  A causal row
@@ -42,6 +43,28 @@ RN_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 SSD_TOL = (1e-3, 1e-5)
 # The fused conv and the dispatch kernels round as their plain versions do:
 # they are held to them bit for bit.
+# The Mamba-2 mixer's skip and gated norm (kernels/skip_gated_norm.py) rounds
+# as its plain version does except in the order of each group's sum of
+# squares.  It is held to the plain arithmetic bit for bit given its own
+# 1 / sqrt(var + eps) of each group (``sgn_given_rstd``), to the plain
+# version bit for bit in every group whose rstd agrees, and elsewhere within
+# limits set between two readings over every SGN_CASES row on an H100: the
+# kernel's (K) and the plain version's with its variance rounded to bf16, a
+# bf16 sum of squares (L):
+# - rstd within SGN_RSTD_TOL, relative: K 2.1e-7 (two f32 ulps), L 1.8e-3;
+# - the output within SGN_ULPS ulps of the model dtype: K 2 in bf16 (on
+#   both main paths' rows: an rstd two f32 ulps off can move round(g * r)
+#   across a rounding boundary, and the product with the scale carries that
+#   to a second ulp), 4 in f32.  In bf16 L reads 2 ulps as well, so the
+#   largest error cannot tell a bf16 variance apart; the RMS error can:
+# - SGN_TOL as ``close`` takes it (allclose at rtol = atol, relative RMS
+#   error): RMS K 1.2e-5 bf16, 4.6e-8 f32; L 2.1e-3 bf16, 8.0e-4 f32.  The
+#   allclose part follows from the ulps in bf16 (2 ulps <= 2^-6 relative);
+#   in f32 K reads 2.6e-7, L 1.5e-3.
+SGN_TOL = {torch.bfloat16: (2**-6, 1e-4), torch.float32: (2**-16, 1e-6)}
+SGN_ULPS = {torch.bfloat16: 2, torch.float32: 16}
+SGN_RSTD_TOL = 2**-20
+SGN_EPS = 1e-5
 
 # path: the main path whose shape the row is (timed by chip_smoke.py; None:
 # checked only); scale: K1's softmax scale on that path (None: 1 / sqrt(D)),
@@ -170,6 +193,30 @@ CONV_CASES = [
       for dtype in (torch.bfloat16, torch.float32)),
     Conv(3, 1001, (520, 24, 136), 3, torch.float32, False),
 ]
+# The Mamba-2 mixer's skip and gated norm (kernels/skip_gated_norm.py): B, S,
+# heads, head size, the norm's group, dtype
+SGN = namedtuple("SGN", "B S H P group dtype path", defaults=(None,))
+SGN_CASES = [SGN(*c) for c in [
+    # granite-4.0-h-small's benchmark cell: 8 x 4096, 8192 channels, one group
+    (8, 4096, 128, 64, 8192, torch.bfloat16, "granite_4_0_h_small"),
+    # mamba2_130m's prefill (inner width 1536 padded to 2048), a group a head
+    (4, 4096, 32, 64, 64, torch.bfloat16, "mamba2_130m"),
+    (3, 1001, 16, 64, 128, torch.bfloat16),  # ragged: odd S, group 128
+    (2, 257, 32, 64, 64, torch.float32),
+    (1, 300, 128, 64, 8192, torch.float32),  # granite's width in f32
+    # the CPU tests' (width, group) pairs: (256, 128), (128, 32), a TP-2 rank
+    # of mamba2_130m (1024, 64); jamba_1_5_large's mixer (16384, 128: 16
+    # units a thread); 1536 channels (a second pass of the block's threads
+    # over half the row); four groups wider than a warp (2048, 512); granite's
+    # SMOKE (head 16, group 128)
+    (2, 100, 4, 64, 128, torch.bfloat16),
+    (2, 100, 8, 16, 32, torch.bfloat16),
+    (2, 512, 16, 64, 64, torch.bfloat16),
+    (1, 512, 128, 128, 128, torch.bfloat16),
+    (2, 64, 24, 64, 64, torch.bfloat16),
+    (2, 300, 32, 64, 512, torch.bfloat16),
+    (2, 64, 16, 16, 128, torch.float32),
+]]
 # The capacity dispatch's gather and combine (kernels/moe_dispatch.py), in
 # f32 and bf16: arch, tokens (B, S), expert-parallel (rank, size) or None,
 # the zoo's padded experts.  granite's prefill layer as the benchmark runs it
@@ -268,6 +315,71 @@ def conv_inputs(gen, c: Conv) -> list:
         convs.append((x, randn(gen, (c.K, C), c.dtype),
                       randn(gen, (C,), c.dtype) if c.bias else None))
     return convs
+
+
+def sgn_inputs(gen, c: SGN) -> tuple:
+    """y, x, D, z, s of a SGN_CASES row: N(0, 1) draws (y and D in f32, the
+    rest in the row's dtype), with exact zeros in x."""
+    W = c.H * c.P
+    x = randn(gen, (c.B, c.S, c.H, c.P), c.dtype)
+    x[:, ::7, :, ::3] = 0.0
+    return (randn(gen, (c.B, c.S, c.H, c.P), torch.float32), x,
+            randn(gen, (c.H,), torch.float32), randn(gen, (c.B, c.S, W), c.dtype),
+            randn(gen, (W,), c.dtype))
+
+
+def _sgn_groups(y, x, D, z, group):
+    """The plain version's gated product, f32, cut into its groups (B, S,
+    groups, channels), as ``gated_rmsnorm`` cuts it."""
+    B, S, H, P = y.shape
+    W = H * P
+    u = (y + D[..., None] * x.float()).reshape(B, S, W).to(x.dtype)
+    g = (u * torch.nn.functional.silu(z.float()).to(x.dtype)).float()
+    return g.reshape(B, S, -1, sgn.group_of(W, group))
+
+
+def sgn_rstd(y, x, D, z, *, eps, group):
+    """Each group's rstd as the plain version computes it, (B, S, groups)."""
+    g = _sgn_groups(y, x, D, z, group)
+    if g.shape[2] == 1:  # gated_rmsnorm's one-group branch reduces the row itself
+        g = g[:, :, 0]
+    return torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + eps).reshape(*g.shape[:2], -1)
+
+
+def sgn_given_rstd(y, x, D, z, s, rstd):
+    """The plain version's arithmetic with each group's rstd given."""
+    g = _sgn_groups(y, x, D, z, z.shape[-1] // rstd.shape[-1])
+    return (g * rstd[..., None]).reshape(*z.shape).to(x.dtype) * s
+
+
+def sgn_check(args, got, rstd, *, eps, group, tol) -> float:
+    """Hold the kernel's ``got`` and ``rstd`` on ``args`` to the plain
+    version (see SGN_TOL, SGN_ULPS, SGN_RSTD_TOL); returns the max abs error
+    against it."""
+    if not torch.equal(got, sgn_given_rstd(*args, rstd)):
+        raise AssertionError("kernel differs from the plain arithmetic given its rstd")
+    want_rstd = sgn_rstd(*args[:4], eps=eps, group=group)
+    rel = ((rstd - want_rstd).abs() / want_rstd).max().item()
+    if rel > SGN_RSTD_TOL:
+        raise AssertionError(f"rstd off by {rel} relative (tol {SGN_RSTD_TOL})")
+    want = ssm.skip_gated_norm_plain(*args, eps=eps, group=group)
+    agree = (rstd == want_rstd)[..., None].expand(*rstd.shape, got.shape[-1] // rstd.shape[-1])
+    agree = agree.reshape(got.shape)
+    if not torch.equal(got[agree], want[agree]):
+        raise AssertionError("kernel differs from its plain version where rstd agrees")
+    gap = ulps(got, want)
+    if gap > SGN_ULPS[got.dtype]:
+        raise AssertionError(f"kernel {gap} ulps off its plain version (tol {SGN_ULPS[got.dtype]})")
+    return close(got, want, tol)
+
+
+def ulps(out, ref) -> float:
+    """The largest gap of ``out`` from ``ref``, in ulps of their dtype at the
+    larger of the two magnitudes."""
+    o, r = out.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(o.abs(), r.abs()))
+    ulp = torch.exp2((e - 1).float()) * torch.finfo(ref.dtype).eps
+    return ((o - r).abs() / ulp).max().item()
 
 
 def dispatch_layer(arch, dtype, cf, *, device="cpu", tokens=(2, 16), seed=0, smoke=True,

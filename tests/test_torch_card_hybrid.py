@@ -2,7 +2,8 @@
 its published widths.
 
 - Its first pipeline stage (20 of its 40 layers) runs 18 K3, 18 fused
-  convs, 2 K1 and 20 ``moe_gather`` and ``moe_combine`` launches a forward.
+  convs, 2 K1, 20 ``moe_gather`` and ``moe_combine`` and 18
+  ``skip_gated_norm`` launches a forward.
 - That stage's logits with the Mamba-2 mixer's fused conv kernel
   (``kernels/causal_conv.py``) equal those with the conv routed to the
   plain version (the kernel alone: ``test_torch_card_kernels.py``).
@@ -24,6 +25,7 @@ from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_dispatch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import skip_gated_norm as sgn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
@@ -47,12 +49,12 @@ def test_card_granite_cell_launches(hopper):
     params = model.init(torch.Generator(device=hopper).manual_seed(3))
     batch = {"tokens": torch.randint(0, cfg.vocab, (1, 2048), device=hopper)}
     counters = (ssd.ssd_scan, cc.causal_conv, fa.flash_attention, moe_dispatch.moe_gather,
-                moe_dispatch.moe_combine)
+                moe_dispatch.moe_combine, sgn.skip_gated_norm)
     before = [c.launches for c in counters]
     with torch.inference_mode():
         logits = model.forward(params, batch)
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(counters, before)] == [18, 18, 2, 20, 20]
+    assert [c.launches - n for c, n in zip(counters, before)] == [18, 18, 2, 20, 20, 18]
     assert torch.isfinite(logits).all()
 
 

@@ -13,20 +13,25 @@ against its plain version, over every row of its table in ``card_cases.py``.
 - the capacity dispatch's ``moe_gather`` and ``moe_combine``, in f32 and
   bf16, each bit for bit on the arguments ``moe_fwd(impl="kernel")`` gave it,
   and that layer bit for bit the reference's dispatch; the rows' routing
-  keeps rows, leaves rows empty and drops pairs."""
+  keeps rows, leaves rows empty and drops pairs;
+- the Mamba-2 mixer's skip and gated norm (``skip_gated_norm``) bit for bit
+  the plain arithmetic given its own rstd of each group, bit for bit the
+  plain version in each group whose rstd agrees, and within ``SGN_TOL``,
+  ``SGN_ULPS`` and ``SGN_RSTD_TOL`` elsewhere."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import card_cases as cases  # noqa: E402
 from card_cases import (CONV_CASES, DISPATCH_CASES, FA_CASES, FA_TOL, RN_CASES,  # noqa: E402
-                        RN_TOL, SSD_CASES, SSD_TOL)
+                        RN_TOL, SGN_CASES, SGN_EPS, SGN_TOL, SSD_CASES, SSD_TOL)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import skip_gated_norm as sgn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.parallel.ctx import ParallelCtx  # noqa: E402
@@ -105,3 +110,16 @@ def test_card_moe_dispatch_equals_plain(hopper, c, dtype, monkeypatch):
                        md.moe_combine_plain(eout, slot, w, local))
     # kept rows, empty rows and dropped (or remote) pairs
     assert (src < 0).any() and (src >= 0).any() and not local.all()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("c", SGN_CASES, ids=str)
+def test_card_skip_gated_norm_equals_plain(hopper, c):
+    args = cases.sgn_inputs(torch.Generator(device=hopper).manual_seed(7), c)
+    n = sgn.skip_gated_norm.launches
+    got, rstd = sgn.skip_gated_norm(*args, eps=SGN_EPS, group=c.group, rstd=True)
+    torch.cuda.synchronize()
+    assert sgn.skip_gated_norm.launches - n == 1
+    W = c.H * c.P
+    assert got.dtype == c.dtype and rstd.shape == (c.B, c.S, W // sgn.group_of(W, c.group))
+    cases.sgn_check(args, got, rstd, eps=SGN_EPS, group=c.group, tol=SGN_TOL[c.dtype])
